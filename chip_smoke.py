@@ -5,22 +5,28 @@
 
 Phases, one line each (any failure raises and the exit code is non-zero):
 1. device: card name and power limit; fails without a CUDA device;
-2. build: compiles the four kernels of fpga_mpeg2_encoder_tpu_torch/csrc;
+2. build: compiles the kernels of fpga_mpeg2_encoder_tpu_torch/csrc and
+   prints each kernel's registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    1920x1152, 416x64 and 64x64 shapes of bench.py content, exact equality
-   (an integer codec: the tolerance is zero).  At 1920x1152 both are timed
-   two ways: device time from torch.profiler (the kernel alone; all the
-   plain version's kernels), and time per call from CUDA events around
-   back-to-back calls, which includes the host's cost where the host is
-   the slower side;
+   (an integer codec: the tolerance is zero); the motion kernels for I and
+   P frames, and the fused one also against the luma kernel followed by the
+   chroma kernel.  At 1920x1152 both are timed two ways: device time from
+   torch.profiler (the kernel alone; all the plain version's kernels), and
+   time per call from CUDA events around back-to-back calls, which includes
+   the host's cost where the host is the slower side;
 4. stages: the time of each stage of one 1920x1152 P-frame;
 5. end to end at 1920x1152, 96 frames, vl=3 q=2, IPPP (pframes_count=23):
    (a) the multi-frame path at bench.py's caps must hash to bench.py's
        PAYLOAD_SHA256, then a timed repeat gives MPixels/s;
    (b) the public Encoder.encode(chunk_frames=48) stream must be 16110848
        bytes with the SHA-256 of the JAX package's 1080p chunked soak;
-   each run must launch every kernel at least once per frame.
-The last two lines are a JSON summary of the kernels and the device line.
+   each run must launch every main-path kernel at least once per frame, and
+   the split motion kernels never (phase 3 holds them against the fused one);
+6. profile: 16 frames of the main path under torch.profiler: kernels
+   launched and device time per frame, the device's idle share, and the
+   kernels that take the most time.
+The last lines are a JSON summary of the kernels, the card and the device line.
 """
 import hashlib
 import json
@@ -36,16 +42,33 @@ SOAK_SHA256 = "d0f0b0ec9f2fabb3a581369b8ef410dbf0660881d46c9a0f9cfbd0ad6ddfa1d8"
 W, H, NF = 1920, 1152, 96
 CAPS = dict(row_cap=4096, frame_cap=262144)
 SEQ_CAP = 8388608
+MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA's data sheet
+INT32_LANES_PER_SM = 64        # Hopper SM: 64 INT32 lanes per clock
+SAD_PER_OP = 4                 # byte-SIMD __vsadu4: four absolute-difference adds
+WORD_BYTES = 4                 # slots (code | len << 27) and packed words are 32-bit
+                               # values, carried as int64 for the CPU's plain code
+MAIN_PATH = ("me_fused", "transform", "acsym", "pack_slots", "merge_rows")
+OFF_PATH = ("me_luma", "chroma_pred", "pack_symbols")
 REPLACES = {
     "transform": "fpga_mpeg2_encoder_tpu/ops/pallas/transform.py:264",
     "acsym": "fpga_mpeg2_encoder_tpu/ops/pallas/acsym.py:206",
     "pack_slots": "fpga_mpeg2_encoder_tpu/ops/pallas/pack.py:207",
     "merge_rows": "fpga_mpeg2_encoder_tpu/ops/pallas/pack.py:386",
+    "me_fused": "fpga_mpeg2_encoder_tpu/ops/pallas/me.py:492",
+    "me_luma": "fpga_mpeg2_encoder_tpu/ops/pallas/me.py:401",
+    "chroma_pred": "fpga_mpeg2_encoder_tpu/ops/pallas/me.py:626",
+    "pack_symbols": "fpga_mpeg2_encoder_tpu/ops/pallas/pack.py:199",
 }
-SOURCES = {"transform": "transform.cu", "acsym": "acsym.cu",
-           "pack_slots": "pack.cu", "merge_rows": "pack.cu"}
+SOURCES = {k: f"fpga_mpeg2_encoder_tpu_torch/csrc/{f}" for k, f in (
+    ("transform", "transform.cu"), ("acsym", "acsym.cu"), ("pack_slots", "pack.cu"),
+    ("merge_rows", "pack.cu"), ("me_fused", "me.cu"), ("me_luma", "me.cu"),
+    ("chroma_pred", "me.cu"))}
+SOURCES["pack_symbols"] = "fpga_mpeg2_encoder_tpu_torch/ops/kernels/pack.py"
 KERNEL_SYMBOLS = {"transform": "transform_kernel", "acsym": "acsym_kernel",
-                  "pack_slots": "pack_slots_kernel", "merge_rows": "merge_rows_kernel"}
+                  "pack_slots": "pack_slots_kernel", "merge_rows": "merge_rows_kernel",
+                  "me_fused": "me_fused_kernel", "me_luma": "me_luma_kernel",
+                  "chroma_pred": "chroma_pred_kernel",
+                  "pack_symbols": None}   # all its kernels: the slot forming and pack_slots
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -61,9 +84,8 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, match=None, reps=10):
-    """Device time per call of the CUDA kernels that ``fn`` launches: those
-    whose name contains ``match``, or all of them.  From torch.profiler."""
+def profile_events(fn, reps):
+    """The CUDA kernel events of ``reps`` calls of ``fn`` under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -72,23 +94,38 @@ def device_ms(fn, match=None, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-          and (match is None or match in e.name)]
-    if not ev:
-        raise AssertionError(f"the profiler saw no device time for {match or 'a plain version'}")
-    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, match=None, reps=10, tries=3):
+    """Device time per call of the CUDA kernels that ``fn`` launches: those
+    whose name contains ``match``, or all of them.  From torch.profiler,
+    which now and then returns a window without a short kernel's events:
+    such a window is profiled again."""
+    for _ in range(tries):
+        ev = [e for e in profile_events(fn, reps) if match is None or match in e.name]
+        if ev:
+            return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
+    raise AssertionError(f"the profiler saw no device time for {match or 'a plain version'}"
+                         f" in {tries} windows")
 
 
 def max_abs_err(a, b):
     import torch
     outs_a = a if isinstance(a, (tuple, list)) else (a,)
     outs_b = b if isinstance(b, (tuple, list)) else (b,)
+    if len(outs_a) != len(outs_b):
+        raise AssertionError(f"{len(outs_a)} outputs != {len(outs_b)}")
     err = 0
     for x, y in zip(outs_a, outs_b):
         if x.shape != y.shape:
             raise AssertionError(f"shape {tuple(x.shape)} != {tuple(y.shape)}")
         err = max(err, int((x.to(torch.int64) - y.to(torch.int64)).abs().max()))
     return err
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def main():
@@ -102,8 +139,15 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()[0]
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"], capture_output=True,
+                           text=True, timeout=60).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_per_s = sms * INT32_LANES_PER_SM * float(clock) * 1e6
     print(f"1 device: {name} | nvidia-smi: {smi} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
+          f"cuda {torch.version.cuda} | {sms} SMs, max SM clock {clock} MHz: "
+          f"INT32 peak {int32_per_s / 1e12:.2f} TOP/s, memory {MEM_BYTES_PER_S / 1e12} TB/s",
+          flush=True)
 
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -114,15 +158,23 @@ def main():
     from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
+    from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
+
+    def bound(nbytes_moved, ops):
+        """(bound_ms, bound_by): the larger of the bytes over the memory rate
+        and the integer operations over the INT32 rate."""
+        t_bytes, t_ops = nbytes_moved / MEM_BYTES_PER_S, ops / int32_per_s
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
     # ---- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
     with open(lib[:-3] + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
     print(f"2 build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib, root)}",
           flush=True)
     for ln in ptxas:
@@ -130,6 +182,7 @@ def main():
 
     # ---- 3. kernels against their plain versions --------------------------------
     cfg = EncoderConfig(xl=7, yl=7, vector_level=3, q_level=2)
+    yr, ur = cfg.yr, cfg.ur
     timing = {}
     gen = torch.Generator(device="cpu").manual_seed(0)
     for (w, h) in ((W, H), (416, 64), (64, 64)):
@@ -137,35 +190,91 @@ def main():
         y0, u0, v0 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f0))
         y1, u1, v1 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f1))
         nby, nbx = h // 16, w // 16
-        mr_p = motion.estimate_and_predict_planes(y1, u1, v1, y0, u0, v0, False,
-                                                  cfg.yr, cfg.ur)
-        mr_i = motion.estimate_and_predict_planes(y1, u1, v1, y0, u0, v0, True,
-                                                  cfg.yr, cfg.ur)
+        n_mb = nby * nbx
+        checks = []   # (label, kernel name, kernel call, plain call, (bytes, ops) or None)
+
+        # motion: fused, luma, chroma, I and P; the fused kernel is also held
+        # against the luma kernel followed by the chroma kernel
+        me_in = nbytes(y1, y0, u0, v0)
+        me_out = n_mb * 9 + 4 * (y1.numel() + u0.numel() + v0.numel())
+        for is_i in (False, True):
+            tag = "I" if is_i else "P"
+            # the search: (2yr+1)^2 full-pel + 9 half-pel + 1 intra candidate
+            # absolute-difference adds per pixel, plus the pixel sum, four
+            # to an instruction; an I-frame skips it
+            ops = 0 if is_i else n_mb * 256 * ((2 * yr + 1) ** 2 + 11) // SAD_PER_OP
+            checks.append((f"{tag}", "me_fused",
+                           lambda i=is_i: k_me.motion_estimate_fused(
+                               y1, y0, u0, v0, i, yr, ur, as_plane=True),
+                           lambda i=is_i: tuple(motion.estimate_and_predict_planes(
+                               y1, u1, v1, y0, u0, v0, i, yr, ur)),
+                           (me_in + me_out, ops)))
+            checks.append((f"{tag}", "me_luma",
+                           lambda i=is_i: k_me.motion_estimate(y1, y0, i, yr, as_plane=True),
+                           lambda i=is_i: (lambda r: (*r[:3], motion.to_planes(r[3])))(
+                               motion.estimate_luma(y1, motion.pad_halo(y0, 8), i, yr, 0, nby)),
+                           (nbytes(y1, y0) + n_mb * 9 + 4 * y1.numel(), ops)))
+        inter, mvx, mvy = k_me.motion_estimate_fused(y1, y0, u0, v0, False, yr, ur)[:3]
         mixed = (torch.rand((nby, nbx), generator=gen) < 0.5).to(dev)
-        checks = []
+        for label, imap in (("P maps", inter), ("mixed inter map", mixed)):
+            n_inter = int(imap.sum())
+            checks.append((label, "chroma_pred",
+                           lambda m=imap: k_me.chroma_pred(u0, v0, m, mvx, mvy, ur,
+                                                           as_plane=True),
+                           lambda m=imap: tuple(map(motion.to_planes, motion.chroma_pred(
+                               motion.pad_halo(u0, 4), motion.pad_halo(v0, 4), m, mvx,
+                               mvy, ur))),
+                           (nbytes(u0, v0, imap, mvx, mvy) + 8 * u0.numel(),
+                            n_inter * 128 * 4)))
+        for is_i in (False, True):
+            split = k_me.motion_estimate(y1, y0, is_i, yr, as_plane=True)
+            split += k_me.chroma_pred(u0, v0, *split[:3], ur, as_plane=True)
+            fused = k_me.motion_estimate_fused(y1, y0, u0, v0, is_i, yr, ur, as_plane=True)
+            torch.cuda.synchronize()
+            if max_abs_err(fused, split) != 0:
+                raise AssertionError(f"me_fused {w}x{h}: != me_luma then chroma_pred")
+        print(f"3 kernel me_fused   {w}x{h} I and P: equals me_luma then chroma_pred",
+              flush=True)
+
+        mr_p = motion.estimate_and_predict_planes(y1, u1, v1, y0, u0, v0, False, yr, ur)
+        mr_i = motion.estimate_and_predict_planes(y1, u1, v1, y0, u0, v0, True, yr, ur)
         for q_level in (2, 4):
-            for label, mr, inter in (("intra", mr_i, mr_i.inter), ("mixed", mr_p, mixed)):
-                args = (y1, u1, v1, mr.pred_y, mr.pred_u, mr.pred_v, inter)
-                checks.append((f"transform q{q_level} {label}", "transform",
+            for label, mr, imap in (("intra", mr_i, mr_i.inter), ("mixed", mr_p, mixed)):
+                args = (y1, u1, v1, mr.pred_y, mr.pred_u, mr.pred_v, imap)
+                # 16 multiply-adds per coefficient for the forward DCT alone
+                work = (nbytes(*args) + n_mb * 384 * 4 + nbytes(y1, u1, v1),
+                        16 * 384 * n_mb)
+                checks.append((f"q{q_level} {label}", "transform",
                                lambda a=args, q=q_level: k_tf.transform_recon(*a, q),
-                               lambda a=args, q=q_level: dct.transform_recon(*a, q)))
+                               lambda a=args, q=q_level: dct.transform_recon(*a, q),
+                               work if (q_level, label) == (2, "mixed") else None))
         qzig, *_ = k_tf.transform_recon(y1, u1, v1, mr_p.pred_y, mr_p.pred_u,
                                         mr_p.pred_v, mr_p.inter, cfg.q_level)
         ac_args = entropy.ac_inputs(qzig, mr_p.inter, mr_p.mvx, mr_p.mvy, 1, cfg.q_level)
-        checks.append(("acsym", "acsym", lambda: k_acsym.ac_slot_grid(*ac_args),
-                       lambda: entropy.ac_slot_grid(*ac_args)))
+        checks.append(("", "acsym", lambda: k_acsym.ac_slot_grid(*ac_args),
+                       lambda: entropy.ac_slot_grid(*ac_args),
+                       (nbytes(ac_args[0]) + 2 * WORD_BYTES * ac_args[1].numel(), 0)))
         slots = entropy.symbolize_frame(qzig, mr_p.inter, mr_p.mvx, mr_p.mvy, 1, 1,
                                         cfg.q_level)
+        codes, lens = slots & entropy.SLOT_CODE_MASK, slots >> entropy.SLOT_LEN_SHIFT
         rw, rb, _ = k_pack.pack_slots(slots, CAPS["row_cap"])
         for cap, tag in ((CAPS["row_cap"], ""), (16, " overflow")):
-            checks.append((f"pack_slots cap {cap}{tag}", "pack_slots",
+            out_bytes = rw.shape[0] * (cap + 1) * WORD_BYTES
+            checks.append((f"cap {cap}{tag}", "pack_slots",
                            lambda c=cap: k_pack.pack_slots(slots, c),
-                           lambda c=cap: bitpack.pack_slots(slots, c)))
+                           lambda c=cap: bitpack.pack_slots(slots, c),
+                           (slots.numel() * WORD_BYTES + out_bytes, 0)))
+            checks.append((f"cap {cap}{tag}", "pack_symbols",
+                           lambda c=cap: k_pack.pack_symbols(codes, lens, c),
+                           lambda c=cap: bitpack.pack_symbols(codes, lens, c),
+                           (2 * slots.numel() * WORD_BYTES + out_bytes, 0)))
+        needed = (int(((rb + 31) // 32).sum()) + rb.numel()) * WORD_BYTES
         for cap, tag in ((CAPS["frame_cap"], ""), (64, " overflow")):
-            checks.append((f"merge_rows cap {cap}{tag}", "merge_rows",
+            checks.append((f"cap {cap}{tag}", "merge_rows",
                            lambda c=cap: k_pack.merge_rows(rw, rb, c),
-                           lambda c=cap: bitpack.merge_rows(rw, rb, c)))
-        for label, kname, kern, plain in checks:
+                           lambda c=cap: bitpack.merge_rows(rw, rb, c),
+                           (needed + WORD_BYTES * cap, 0)))
+        for label, kname, kern, plain, work in checks:
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
@@ -173,31 +282,37 @@ def main():
                 raise AssertionError(f"{kname} {w}x{h} {label}: kernel != plain "
                                      f"(max abs err {err})")
             if "overflow" in label:
-                flag = got[2] if kname == "pack_slots" else got[1] > 32 * 64
+                flag = got[1] > 32 * 64 if kname == "merge_rows" else got[2]
                 if not bool(flag):
                     raise AssertionError(f"{kname} {w}x{h} {label}: no overflow")
             times = ""
-            if (w, h) == (W, H) and "overflow" not in label:
+            if (w, h) == (W, H) and work is not None and "overflow" not in label:
+                b_ms, b_by = bound(*work)
                 t = dict(ms=device_ms(kern, KERNEL_SYMBOLS[kname]), plain_ms=device_ms(plain),
-                         call_ms=cuda_ms(kern), plain_call_ms=cuda_ms(plain))
-                if kname not in timing or label.endswith("q2 mixed"):
+                         call_ms=cuda_ms(kern), plain_call_ms=cuda_ms(plain),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                if kname not in timing or label in ("P", "P maps"):
                     timing[kname] = (t, err)
                 times = (f"  kernel {t['ms']:.4f} ms on device ({t['call_ms']:.4f} per call)"
-                         f"  plain {t['plain_ms']:.4f} ms on device ({t['plain_call_ms']:.4f} per call)")
-            print(f"3 kernel {kname:10s} {w}x{h} {label:24s} exact{times}", flush=True)
+                         f"  plain {t['plain_ms']:.4f} ms on device ({t['plain_call_ms']:.4f}"
+                         f" per call)  bound {b_ms:.4f} ms ({b_by}: {work[0] / 1e6:.2f} MB,"
+                         f" {work[1] / 1e6:.1f} M int ops)")
+            print(f"3 kernel {kname:12s} {w}x{h} {label:18s} exact{times}", flush=True)
 
     # ---- 4. stages of one 1920x1152 P-frame -----------------------------------
     frames = make_frames(W, H, NF)
     fy, fu, fv = (torch.as_tensor(np.stack([f[i] for f in frames]), device=dev)
                   for i in range(3))
     y0, u0, v0 = colorspace.subsample_420(fy[0], fu[0], fv[0])
-    kw = dict(yr=cfg.yr, ur=cfg.ur, q_level=cfg.q_level)
+    kw = dict(yr=yr, ur=ur, q_level=cfg.q_level)
     st = {}
     st["subsample"] = cuda_ms(lambda: colorspace.subsample_420(fy[1], fu[1], fv[1]))
     y, u, v = colorspace.subsample_420(fy[1], fu[1], fv[1])
+    st["motion (kernel)"] = cuda_ms(lambda: k_me.estimate_and_predict_planes(
+        y, u, v, y0, u0, v0, False, yr, ur))
     st["motion (plain)"] = cuda_ms(lambda: motion.estimate_and_predict_planes(
-        y, u, v, y0, u0, v0, False, cfg.yr, cfg.ur))
-    mr = motion.estimate_and_predict_planes(y, u, v, y0, u0, v0, False, cfg.yr, cfg.ur)
+        y, u, v, y0, u0, v0, False, yr, ur))
+    mr = k_me.estimate_and_predict_planes(y, u, v, y0, u0, v0, False, yr, ur)
     targs = (y, u, v, mr.pred_y, mr.pred_u, mr.pred_v, mr.inter, cfg.q_level)
     st["transform (kernel)"] = cuda_ms(lambda: k_tf.transform_recon(*targs))
     qzig = k_tf.transform_recon(*targs)[0]
@@ -222,42 +337,51 @@ def main():
     zy = torch.zeros((H, W), dtype=torch.uint8, device=dev)
     zc = torch.zeros((H // 2, W // 2), dtype=torch.uint8, device=dev)
 
-    def run_a():
-        return M.encode_gop_scan_core(fy, fu, fv, zy, zc, zc, 0, 0, 23, **kw,
-                                      **CAPS, seq_cap=SEQ_CAP)
+    def run_a(nf=NF):
+        return M.encode_gop_scan_core(fy[:nf], fu[:nf], fv[:nf], zy, zc, zc, 0, 0, 23,
+                                      **kw, **CAPS, seq_cap=SEQ_CAP)
 
-    def check_launches(tag):
-        low = {k: n for k, n in _build.LAUNCHES.items() if n < NF}
+    def check_launches(tag, path, never=()):
+        counts = dict(_build.LAUNCHES)
+        low = {k: counts[k] for k in path if counts[k] < NF}
         if low:
             raise AssertionError(f"{tag}: kernels launched fewer than {NF} times: {low}")
-        return dict(_build.LAUNCHES)
+        used = {k: counts[k] for k in never if counts[k]}
+        if used:
+            raise AssertionError(f"{tag}: kernels off this path were launched: {used}")
+        return counts
+
+    def check_payload(tag, sw, sbits):
+        payload = M.words_to_bytes(sw[: (sbits + 31) // 32].cpu().numpy(), sbits)
+        digest = hashlib.sha256(payload).hexdigest()
+        if digest != PAYLOAD_SHA256:
+            raise AssertionError(f"{tag}: payload digest {digest} != {PAYLOAD_SHA256}")
+        if payload[:4] != b"\x00\x00\x01\xb8" or payload[8:12] != b"\x00\x00\x01\x00":
+            raise AssertionError(f"{tag}: payload does not start with GOP + picture headers")
+        return payload
 
     _build.reset_launches()
     out = run_a()
     torch.cuda.synchronize()
-    launches_a = check_launches("5a")
-    sw, sbits, ovf = out[3], int(out[4]), bool(out[7])
-    payload = M.words_to_bytes(sw[: (sbits + 31) // 32].cpu().numpy(), sbits)
-    digest = hashlib.sha256(payload).hexdigest()
-    if ovf:
+    launches_a = check_launches("5a", MAIN_PATH, ("me_luma", "chroma_pred"))
+    if bool(out[7]):
         raise AssertionError("5a: payload overflow at bench caps")
-    if digest != PAYLOAD_SHA256:
-        raise AssertionError(f"5a: payload digest {digest} != {PAYLOAD_SHA256}")
-    if payload[:4] != b"\x00\x00\x01\xb8" or payload[8:12] != b"\x00\x00\x01\x00":
-        raise AssertionError("5a: payload does not start with GOP + picture headers")
+    payload = check_payload("5a", out[3], int(out[4]))
     print(f"5a encode_gop_scan_core: {len(payload)} payload bytes, sha256 matches "
           f"bench.py PAYLOAD_SHA256, no overflow, launches {launches_a}", flush=True)
 
-    ms = min(cuda_ms(run_a, reps=1, warmup=0) for _ in range(3))
+    runs = [cuda_ms(run_a, reps=1, warmup=0) for _ in range(3)]
+    ms = min(runs)
     mpix = W * H * NF / (ms / 1e3) / 1e6
     print(f"5a timed: {ms:.1f} ms for {NF} frames = {mpix:.1f} MPixels/s "
-          f"({NF / (ms / 1e3):.1f} frames/s) on {smi}", flush=True)
+          f"({NF / (ms / 1e3):.1f} frames/s), best of "
+          f"{', '.join(f'{r:.1f}' for r in runs)} ms, on {smi}", flush=True)
 
     _build.reset_launches()
     stream = Encoder(EncoderConfig(xl=7, yl=7), device="cuda", **CAPS).encode(
         frames, W, H, pframes_count=23, chunk_frames=48)
     torch.cuda.synchronize()
-    launches_b = check_launches("5b")
+    launches_b = check_launches("5b", MAIN_PATH, ("me_luma", "chroma_pred"))
     digest = hashlib.sha256(stream).hexdigest()
     if len(stream) != SOAK_BYTES or digest != SOAK_SHA256:
         raise AssertionError(f"5b: stream {len(stream)} bytes sha256 {digest}, "
@@ -274,13 +398,33 @@ def main():
     print(f"5b Encoder.encode(chunk_frames=48): {len(stream)} bytes, sha256 matches "
           f"the 1080p soak digest, structure ok, launches {launches_b}", flush=True)
 
+    # ---- 6. profile of the main path --------------------------------------------
+    npf = 16
+    wall = min(cuda_ms(lambda: run_a(npf), reps=1, warmup=1) for _ in range(3)) / npf
+    ev = profile_events(lambda: run_a(npf), 1)
+    busy = sum(e.time_range.elapsed_us() for e in ev) / npf / 1e3
+    by_name = {}
+    for e in ev:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    print(f"6 profile ({npf} frames of 5a): {len(ev) / npf:.1f} kernels per frame, "
+          f"{busy:.4f} ms device time per frame, {wall:.4f} ms per frame without the "
+          f"profiler: device idle {100 * (1 - busy / wall):.1f}%", flush=True)
+    for n, (cnt, t) in top:
+        print(f"  {t / npf:.4f} ms/frame  {cnt / npf:.1f} launches/frame  {n[:90]}")
+
     kernels = []
-    for kname in ("transform", "acsym", "pack_slots", "merge_rows"):
+    for kname in MAIN_PATH + OFF_PATH:
         t, err = timing[kname]
-        kernels.append({"name": kname, "route": "cuda",
-                        "source": f"fpga_mpeg2_encoder_tpu_torch/csrc/{SOURCES[kname]}",
-                        "replaces": REPLACES[kname], "launches": launches_b[kname],
-                        "max_abs_err": err, **t})
+        # 5b's counts; pack_symbols has none, and the main path never calls it
+        row = {"name": kname, "route": "cuda", "source": SOURCES[kname],
+               "replaces": REPLACES[kname], "launches": launches_b.get(kname, 0),
+               "max_abs_err": err, **t}
+        if kname == "pack_symbols":
+            row["note"] = ("wrapper over pack_slots: forms the slots and launches the "
+                           "pack_slots kernel, no kernel of its own")
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,7 @@
 """The encoder: per-frame pipeline + sequence runtime, in PyTorch.
 
 Pipeline per frame (all macroblocks batched):
-  4:2:0 subsample -> motion estimation + prediction -> transform kernel
+  4:2:0 subsample -> motion-estimation kernel (search + prediction) -> transform kernel
   (residual, DCT, quantise, dequantise, IDCT, reconstruction) -> symbolisation
   (AC symbols through the acsym kernel) -> pack kernel (one bit-string per
   slot row) -> merge kernel (one byte-aligned frame payload, GOP/picture
@@ -31,7 +31,8 @@ import torch
 
 from ..config import EncoderConfig, SequenceConfig
 from ..core.bitstream import BitWriter, SEQUENCE_END_CHUNKS, sequence_header_chunks
-from ..ops import bitpack, colorspace, entropy, motion
+from ..ops import bitpack, colorspace, entropy
+from ..ops.kernels import me as k_me
 from ..ops.kernels import pack as k_pack
 from ..ops.kernels import transform as k_transform
 from ..runtime.state import EncoderState
@@ -49,8 +50,8 @@ def symbolize_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
     (2 + nby, S) int64).  Also the overflow retry: its slot grid is packed on
     the host with no caps."""
     y, u, v = colorspace.subsample_420(y444, u444, v444)
-    mr = motion.estimate_and_predict_planes(y, u, v, prev_y, prev_u, prev_v,
-                                            i_frame == 0, yr, ur)
+    mr = k_me.estimate_and_predict_planes(y, u, v, prev_y, prev_u, prev_v,
+                                          i_frame == 0, yr, ur)
     quant_zig, recon_y, recon_u, recon_v = k_transform.transform_recon(
         y, u, v, mr.pred_y, mr.pred_u, mr.pred_v, mr.inter, q_level)
     slots = entropy.symbolize_frame(quant_zig, mr.inter, mr.mvx, mr.mvy,

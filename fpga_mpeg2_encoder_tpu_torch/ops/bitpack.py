@@ -1,6 +1,6 @@
 """Parallel variable-length bit packing by prefix sum: the plain PyTorch
-versions of the pack and merge kernels (ops/kernels/pack.py), plus the
-per-frame sequence append.
+versions of the pack and merge kernels (ops/kernels/pack.py) and of
+pack_symbols, plus the per-frame sequence append.
 
 A bit-string is a row of 32-bit words, MSB first, left-justified and
 zero-filled beyond its length (so OR is concatenation), held as int64 values
@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 _MASK32 = 0xFFFFFFFF
+_LEN_SHIFT = 27              # entropy.SLOT_LEN_SHIFT: slot = code | len << 27
 
 
 def align_bytes(bits: torch.Tensor) -> torch.Tensor:
@@ -51,12 +52,24 @@ def pack_slots(slots: torch.Tensor, cap_words: int
     nothing whatever code it carries.  Content past cap_words words is
     dropped; overflow is set iff some row's bits exceed 32 * cap_words."""
     slots = slots.to(torch.int64)
-    lens = slots >> 27
-    codes = slots & ((1 << 27) - 1) & ((torch.ones_like(lens) << lens) - 1)
+    lens = slots >> _LEN_SHIFT
+    codes = slots & ((1 << _LEN_SHIFT) - 1) & ((torch.ones_like(lens) << lens) - 1)
     ends = lens.cumsum(dim=1)
     words = _scatter_bits(slots.shape[0], cap_words, codes, lens, ends - lens)
     bits = align_bytes(ends[:, -1])
     return words, bits, (bits > 32 * cap_words).any()
+
+
+def symbol_slots(codes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """(code, len) symbols -> int64 slots ``code | len << 27`` (entropy.pack_slot)."""
+    return codes.to(torch.int64) | (lens.to(torch.int64) << _LEN_SHIFT)
+
+
+def pack_symbols(codes: torch.Tensor, lens: torch.Tensor, cap_words: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pack rows of (code, len) symbols, (R, S) codes < 2**len and len <= 24:
+    as pack_slots on their slots."""
+    return pack_slots(symbol_slots(codes, lens), cap_words)
 
 
 def merge_rows(words: torch.Tensor, bits: torch.Tensor, cap_words: int

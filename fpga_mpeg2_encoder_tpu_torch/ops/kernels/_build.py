@@ -26,14 +26,16 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("transform.cu", "acsym.cu", "pack.cu")
+SOURCES = ("transform.cu", "acsym.cu", "pack.cu", "me.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset: each wrapper adds one where it
-# launches its kernel, and nowhere else.
+# launches its kernel, and nowhere else.  pack_symbols has no kernel of its
+# own and no count: its launches are pack_slots'.
 LAUNCHES: Dict[str, int] = {"transform": 0, "acsym": 0, "pack_slots": 0,
-                            "merge_rows": 0}
+                            "merge_rows": 0, "me_fused": 0, "me_luma": 0,
+                            "chroma_pred": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -41,6 +43,9 @@ _SIGNATURES = {
     "mpeg2_acsym": [_P, _P, _P, _I, _I, _P],
     "mpeg2_pack_slots": [_P, _P, _P, _I, _I, _I, _P],
     "mpeg2_merge_rows": [_P, _P, _P, _I, _I, _I, _P],
+    "mpeg2_me_fused": [_P] * 10 + [_I] * 8 + [_P],
+    "mpeg2_me_luma": [_P] * 6 + [_I] * 8 + [_P],
+    "mpeg2_chroma_pred": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

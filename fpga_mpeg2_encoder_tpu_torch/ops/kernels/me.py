@@ -1,0 +1,166 @@
+"""Motion-estimation kernels (csrc/me.cu): full-pel search, half-pel
+refinement, inter/intra decision and luma and chroma prediction.
+
+* motion_estimate_fused replaces ops/pallas/me.py::motion_estimate_fused_pallas
+  of the JAX package: the whole stage in one launch, on the main path once
+  per frame;
+* motion_estimate replaces motion_estimate_pallas (the luma half);
+* chroma_pred replaces chroma_pred_pallas (the chroma half, from the mv and
+  inter maps in device memory).
+The JAX package reaches the last two only as a demotion rung; here they are
+public functions that are held against their plain versions and against
+the fused kernel, and the encoder never switches to them.
+
+What bounds the search on the card is integer throughput, just ahead of
+memory: at 1920x1152, yr = 6, a P-frame is 8640 x 169 x 256 = 374 M
+absolute-difference adds for the full-pel search alone, 5.6 us at the INT32
+peak with four byte differences per instruction (__vsadu4), against 18.9 MB
+of input and output, 5.6 us at 3.35 TB/s.
+The kernel runs one block per macroblock with the block and its 30x30
+reference window in shared memory, one thread per full-pel candidate and one
+thread per pixel for the half-pel stage, so every reference pixel is read
+from device memory once per block and nothing between the search and the
+prediction leaves the SM.  An
+I-frame skips the search, as its result (intra, mv 0, prediction 128) does
+not depend on it.
+
+Every function takes the JAX functions' arguments: ``halo`` says the
+reference planes carry 8 luma / 4 chroma halo rows each side (the band form
+of slice-row sharding), ``first_mb_row``/``total_mb_rows`` place the band in
+the frame, ``as_plane`` returns predictions as (H, W) planes instead of
+(nby, nbx, bs, bs) tiles.  On CPU tensors the plain versions of
+ops/motion.py run instead.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .. import motion
+from . import _build
+
+MAX_YR = 6   # csrc/me.cu's window size: vector_level <= 3
+
+
+def _meta(nby: int, nbx: int, dev):
+    return (torch.empty((nby, nbx), dtype=torch.bool, device=dev),
+            torch.empty((nby, nbx), dtype=torch.int32, device=dev),
+            torch.empty((nby, nbx), dtype=torch.int32, device=dev))
+
+
+def _pred(nby: int, nbx: int, bs: int, as_plane: bool, dev) -> torch.Tensor:
+    shape = (nby * bs, nbx * bs) if as_plane else (nby, nbx, bs, bs)
+    return torch.empty(shape, dtype=torch.int32, device=dev)
+
+
+def _band(cur_y: torch.Tensor, yr: int, total_mb_rows: Optional[int]):
+    h, w = cur_y.shape
+    if h % 16 or w % 16:
+        raise ValueError(f"frame {h}x{w} is not a multiple of 16")
+    if not 1 <= yr <= MAX_YR:
+        raise ValueError(f"search range {yr} outside 1..{MAX_YR}")
+    return h // 16, w // 16, h // 16 if total_mb_rows is None else total_mb_rows
+
+
+def _check_planes(nby: int, nbx: int, halo: bool, luma=None, chroma=()):
+    """Check the reference planes' shapes: nby*bs rows plus the halo rows."""
+    if luma is not None:
+        _build.check(luma, "prev_y", torch.uint8,
+                     (nby * 16 + (16 if halo else 0), nbx * 16))
+    for t, name in chroma:
+        _build.check(t, name, torch.uint8, (nby * 8 + (8 if halo else 0), nbx * 8))
+
+
+def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe: bool, yr: int,
+                          ur: int, first_mb_row: int = 0,
+                          total_mb_rows: Optional[int] = None, halo: bool = False,
+                          as_plane: bool = False) -> Tuple[torch.Tensor, ...]:
+    """cur_y (H, W) uint8; prev_y (H, W) uint8, or (H + 16, W) with ``halo``;
+    prev_u/prev_v (H/2, W/2), or (H/2 + 8, W/2) with ``halo`` -> (inter
+    (nby, nbx) bool, mvx, mvy (nby, nbx) int32 half-pel, pred_y, pred_u,
+    pred_v int32)."""
+    nby, nbx, total = _band(cur_y, yr, total_mb_rows)
+    if _build.on_cpu(cur_y, prev_y, prev_u, prev_v):
+        if not halo:
+            prev_y = motion.pad_halo(prev_y, motion.LUMA_HALO)
+            prev_u = motion.pad_halo(prev_u, motion.CHROMA_HALO)
+            prev_v = motion.pad_halo(prev_v, motion.CHROMA_HALO)
+        return tuple(motion.estimate_and_predict_local(
+            cur_y, prev_y, prev_u, prev_v, bool(is_iframe), yr, ur, first_mb_row,
+            total, as_plane))
+    _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16))
+    _check_planes(nby, nbx, halo, prev_y, ((prev_u, "prev_u"), (prev_v, "prev_v")))
+    dev = cur_y.device
+    inter, mvx, mvy = _meta(nby, nbx, dev)
+    py, pu, pv = (_pred(nby, nbx, 16, as_plane, dev), _pred(nby, nbx, 8, as_plane, dev),
+                  _pred(nby, nbx, 8, as_plane, dev))
+    _build.launch("mpeg2_me_fused", "me_fused", dev, cur_y, prev_y, prev_u, prev_v,
+                  inter, mvx, mvy, py, pu, pv, nby, nbx, yr, int(bool(is_iframe)),
+                  first_mb_row, total, int(halo), int(as_plane))
+    return inter, mvx, mvy, py, pu, pv
+
+
+def motion_estimate(cur_y, prev_y, is_iframe: bool, yr: int, first_mb_row: int = 0,
+                    total_mb_rows: Optional[int] = None, halo: bool = False,
+                    as_plane: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Luma half of motion_estimate_fused: (inter, mvx, mvy, pred_y)."""
+    nby, nbx, total = _band(cur_y, yr, total_mb_rows)
+    if _build.on_cpu(cur_y, prev_y):
+        if not halo:
+            prev_y = motion.pad_halo(prev_y, motion.LUMA_HALO)
+        inter, mvx, mvy, pred_y = motion.estimate_luma(
+            cur_y, prev_y, bool(is_iframe), yr, first_mb_row, total)
+        return inter, mvx, mvy, motion.to_planes(pred_y) if as_plane else pred_y
+    _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16))
+    _check_planes(nby, nbx, halo, prev_y)
+    dev = cur_y.device
+    inter, mvx, mvy = _meta(nby, nbx, dev)
+    py = _pred(nby, nbx, 16, as_plane, dev)
+    _build.launch("mpeg2_me_luma", "me_luma", dev, cur_y, prev_y, inter, mvx, mvy, py,
+                  nby, nbx, yr, int(bool(is_iframe)), first_mb_row, total,
+                  int(halo), int(as_plane))
+    return inter, mvx, mvy, py
+
+
+def chroma_pred(prev_u, prev_v, inter, mvx, mvy, ur: int, halo: bool = False,
+                as_plane: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chroma half of motion_estimate_fused: prev_u/prev_v (H/2, W/2) uint8,
+    or (H/2 + 8, W/2) with ``halo``, and the (nby, nbx) inter/mvx/mvy maps ->
+    (pred_u, pred_v) int32."""
+    nby, nbx = inter.shape
+    if _build.on_cpu(prev_u, prev_v, inter, mvx, mvy):
+        if not halo:
+            prev_u = motion.pad_halo(prev_u, motion.CHROMA_HALO)
+            prev_v = motion.pad_halo(prev_v, motion.CHROMA_HALO)
+        pu, pv = motion.chroma_pred(prev_u, prev_v, inter, mvx, mvy, ur)
+        return (motion.to_planes(pu), motion.to_planes(pv)) if as_plane else (pu, pv)
+    _check_planes(nby, nbx, halo, chroma=((prev_u, "prev_u"), (prev_v, "prev_v")))
+    _build.check(inter, "inter", torch.bool, (nby, nbx))
+    _build.check(mvx, "mvx", torch.int32, (nby, nbx))
+    _build.check(mvy, "mvy", torch.int32, (nby, nbx))
+    dev = prev_u.device
+    pu, pv = _pred(nby, nbx, 8, as_plane, dev), _pred(nby, nbx, 8, as_plane, dev)
+    _build.launch("mpeg2_chroma_pred", "chroma_pred", dev, prev_u, prev_v, inter, mvx,
+                  mvy, pu, pv, nby, nbx, int(halo), int(as_plane))
+    return pu, pv
+
+
+def estimate_and_predict_planes(cur_y, cur_u, cur_v, prev_y, prev_u, prev_v,
+                                is_iframe: bool, yr: int, ur: int
+                                ) -> motion.MotionResult:
+    """The main path's motion stage: motion.estimate_and_predict_planes'
+    contract (predictions as planes), through the fused kernel."""
+    del cur_u, cur_v    # the reference searches luma only
+    return motion.MotionResult(*motion_estimate_fused(
+        cur_y, prev_y, prev_u, prev_v, is_iframe, yr, ur, as_plane=True))
+
+
+def estimate_and_predict_local(cur_y, prev_y_h, prev_u_h, prev_v_h, is_iframe: bool,
+                               yr: int, ur: int, first_mb_row: int, total_mb_rows: int,
+                               as_planes: bool = False) -> motion.MotionResult:
+    """motion.estimate_and_predict_local's contract (the band form), through
+    the fused kernel."""
+    return motion.MotionResult(*motion_estimate_fused(
+        cur_y, prev_y_h, prev_u_h, prev_v_h, is_iframe, yr, ur, first_mb_row,
+        total_mb_rows, halo=True, as_plane=as_planes))

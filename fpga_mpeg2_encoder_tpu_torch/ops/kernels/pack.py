@@ -1,10 +1,13 @@
 """Bit packing kernels (csrc/pack.cu).
 
 pack_slots replaces ops/pallas/pack.py::pack_slots_pallas and merge_rows
-replaces ops/pallas/pack.py::merge_rows_pallas of the JAX package.  Both
-move little data (at 1920x1152: 28 MB of slots into pack_slots, 2.4 MB of
-row words into merge_rows) and are bound by the dependence of every bit
-offset on all earlier lengths.  One prefix sum gives each symbol (or row
+replaces ops/pallas/pack.py::merge_rows_pallas of the JAX package;
+pack_symbols replaces pack_symbols_pallas, which on the TPU as here forms the
+slots and calls the pack kernel, and launches nothing of its own.
+pack_slots and merge_rows move little data (at 1920x1152: 3.5 M slots into
+pack_slots, 14 MB as the 32-bit values they are, 28 MB as the int64 they are
+carried in) and are bound by the dependence of every bit offset on all
+earlier lengths.  One prefix sum gives each symbol (or row
 word) its offset, and it is OR-ed straight into one or two output words with
 atomics, in place of the TPU's bit-reversed merge tree.  pack_slots runs one
 block per row, so a frame of 74 slot rows fills 74 of the H100's 132 SMs.
@@ -38,6 +41,15 @@ def pack_slots(slots: torch.Tensor, cap_words: int
     _build.launch("mpeg2_pack_slots", "pack_slots", slots.device,
                   slots, words, bits, r, s, cap_words)
     return words, bits, (bits > 32 * cap_words).any()
+
+
+def pack_symbols(codes: torch.Tensor, lens: torch.Tensor, cap_words: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(R, S) codes < 2**len and lens <= 24 -> as pack_slots, through the
+    pack_slots kernel; see bitpack.pack_symbols."""
+    if _build.on_cpu(codes, lens):
+        return bitpack.pack_symbols(codes, lens, cap_words)
+    return pack_slots(bitpack.symbol_slots(codes, lens), cap_words)
 
 
 def merge_rows(words: torch.Tensor, bits: torch.Tensor, cap_words: int

@@ -1,12 +1,20 @@
 """Motion estimation + prediction over the whole macroblock grid (stages X/Y/Z/F,
-RTL/mpeg2encoder.v:1310-1918), in plain PyTorch.
+RTL/mpeg2encoder.v:1310-1918), in plain PyTorch: the plain versions of the
+motion-estimation kernels (ops/kernels/me.py).
+
+The module mirrors the JAX package's split (ops/pallas/me.py): the fused
+kernel's work is ``estimate_luma`` followed by ``chroma_pred``, and
+``estimate_and_predict_local`` runs both on a band of macroblock rows whose
+reference planes arrive with their halos (8 luma rows, 4 chroma rows each
+side).  The whole-frame forms pad those halos with zeros.
 
 All macroblocks run at once:
 * full-pel: (2*yr+1)^2 shifted whole-frame absolute differences, reduced to
   16x16 block sums by integer reshape-sums;
 * argmin with the exact RTL tie-break (largest dy, then largest dx among
   minima, RTL:1694-1710) via an order-encoding key, after the frame-edge and
-  12-bit SAD overflow masks (RTL:1670);
+  12-bit SAD overflow masks (RTL:1670); the top and bottom edges are GLOBAL
+  macroblock rows, so a band's seams are not frame edges;
 * recentring: every macroblock's 18x18 window at its own full-pel vector is
   gathered by direct indexing;
 * half-pel: the mean2/mean4 grids, 9 candidate SADs and the exact
@@ -19,19 +27,21 @@ Planes outside the frame read as zero, as in the reference's halo padding.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+
+LUMA_HALO, CHROMA_HALO = 8, 4    # reference rows above and below a band
 
 
 class MotionResult(NamedTuple):
     inter: torch.Tensor      # (nby, nbx) bool
     mvx: torch.Tensor        # (nby, nbx) int32, half-pel units
     mvy: torch.Tensor        # (nby, nbx) int32
-    pred_y: torch.Tensor     # (nby, nbx, 16, 16) int32
-    pred_u: torch.Tensor     # (nby, nbx, 8, 8) int32
-    pred_v: torch.Tensor     # (nby, nbx, 8, 8) int32
+    pred_y: torch.Tensor     # (nby, nbx, 16, 16) int32, or an (H, W) plane
+    pred_u: torch.Tensor     # (nby, nbx, 8, 8) int32, or an (H/2, W/2) plane
+    pred_v: torch.Tensor
 
 
 def _find_min_10(v: torch.Tensor) -> torch.Tensor:
@@ -54,32 +64,44 @@ def _find_min_10(v: torch.Tensor) -> torch.Tensor:
     return torch.where(use89, i89, left)
 
 
-def _windows(plane: torch.Tensor, pad: int, bs: int, size: int,
+def _windows(plane_h: torch.Tensor, halo: int, bs: int, size: int,
              off_y: torch.Tensor, off_x: torch.Tensor) -> torch.Tensor:
-    """(H, W) plane -> (nby, nbx, size, size) windows, window [by, bx] starting
-    at row bs*by + off_y[by, bx], col bs*bx + off_x[by, bx] of the plane,
-    zero outside it (|off| <= pad)."""
-    p = F.pad(plane.to(torch.int32), (pad, pad, pad, pad))
+    """(rows + 2*halo, W) plane with ``halo`` rows each side -> (nby, nbx,
+    size, size) windows, window [by, bx] starting at row bs*by + off_y[by, bx],
+    col bs*bx + off_x[by, bx] of the unhaloed plane, zero left and right of it
+    (|off| <= halo)."""
+    p = F.pad(plane_h.to(torch.int32), (halo, halo))
     nby, nbx = off_y.shape
-    k = torch.arange(size, device=plane.device)
-    by = torch.arange(nby, device=plane.device)[:, None, None]
-    bx = torch.arange(nbx, device=plane.device)[None, :, None]
-    rows = bs * by + off_y[:, :, None] + pad + k
-    cols = bs * bx + off_x[:, :, None] + pad + k
+    k = torch.arange(size, device=plane_h.device)
+    by = torch.arange(nby, device=plane_h.device)[:, None, None]
+    bx = torch.arange(nbx, device=plane_h.device)[None, :, None]
+    rows = bs * by + off_y[:, :, None] + halo + k
+    cols = bs * bx + off_x[:, :, None] + halo + k
     return p[rows[:, :, :, None], cols[:, :, None, :]]
 
 
-def estimate_and_predict(
-    cur_y: torch.Tensor,       # (H, W) uint8 current luma
-    cur_u: torch.Tensor,       # (H/2, W/2) uint8 (unused: the RTL searches luma)
-    cur_v: torch.Tensor,
-    prev_y: torch.Tensor,      # previous recon planes, uint8
-    prev_u: torch.Tensor,
-    prev_v: torch.Tensor,
+def to_planes(t: torch.Tensor) -> torch.Tensor:
+    """(nby, nbx, bs, bs) tiles -> (nby*bs, nbx*bs) plane."""
+    nb_y, nb_x, bs, _ = t.shape
+    return t.permute(0, 2, 1, 3).reshape(nb_y * bs, nb_x * bs)
+
+
+def pad_halo(plane: torch.Tensor, halo: int) -> torch.Tensor:
+    """Whole-frame plane -> the band form: ``halo`` zero rows each side."""
+    return F.pad(plane, (0, 0, halo, halo))
+
+
+def estimate_luma(
+    cur_y: torch.Tensor,       # (Hl, W) uint8: a band of macroblock rows
+    prev_y_h: torch.Tensor,    # (Hl + 16, W) uint8: recon band + 8-row halo each side
     is_iframe: bool,
     yr: int,                   # luma search range
-    ur: int,                   # chroma search range
-) -> MotionResult:
+    first_mb_row: int,         # global MB row of local row 0
+    total_mb_rows: int,        # global MB row count
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Luma motion estimation + prediction: the plain version of the luma
+    kernel (JAX ops/pallas/me.py::_me_body).  Returns (inter (nby, nbx) bool,
+    mvx, mvy (nby, nbx) int32 half-pel, pred_y (nby, nbx, 16, 16) int32)."""
     h, w = cur_y.shape
     nby, nbx = h // 16, w // 16
     dev = cur_y.device
@@ -87,7 +109,8 @@ def estimate_and_predict(
     cy = cur_y.to(torch.int32)
 
     # ---- full-pel SAD volume: one row offset at a time, all column offsets --
-    prevp = F.pad(prev_y.to(torch.int32), (yr, yr, yr, yr))
+    prevp = F.pad(prev_y_h[LUMA_HALO - yr:LUMA_HALO + h + yr].to(torch.int32),
+                  (yr, yr))
     sads = []
     for iy in range(n):
         win = prevp[iy:iy + h].unfold(1, w, 1)                  # (h, n, w)
@@ -99,11 +122,11 @@ def estimate_and_predict(
     dyi = (lin_all // n - yr)[:, None, None]
     dxi = (lin_all % n - yr)[:, None, None]
     col = torch.arange(nbx, device=dev)
-    row = torch.arange(nby, device=dev)
+    row = torch.arange(nby, device=dev) + first_mb_row          # global MB rows
     edge_l = (col == 0)[None, :]
     edge_r = (col == nbx - 1)[None, :]
     edge_t = (row == 0)[:, None]
-    edge_b = (row == nby - 1)[:, None]
+    edge_b = (row == total_mb_rows - 1)[:, None]
     invalid = (edge_l & (dxi < 0)) | (edge_r & (dxi > 0)) \
         | (edge_t & (dyi < 0)) | (edge_b & (dyi > 0)) | (sad > 4095)
 
@@ -124,7 +147,7 @@ def estimate_and_predict(
     intra_cost = torch.where(acc < 4096, acc, 0xFFF)
 
     # ---- recentring: every MB's 18x18 window at its own full-pel mv -----------
-    w18 = _windows(prev_y, 8, 16, 18, mvy_full - 1, mvx_full - 1)
+    w18 = _windows(prev_y_h, LUMA_HALO, 16, 18, mvy_full - 1, mvx_full - 1)
     hh = (1 + w18[..., :, :-1] + w18[..., :, 1:]) >> 1          # (.., 18, 17)
     vv = (1 + w18[..., :-1, :] + w18[..., 1:, :]) >> 1          # (.., 17, 18)
     m4 = (1 + w18[..., :-1, :-1] + w18[..., :-1, 1:]
@@ -175,24 +198,75 @@ def estimate_and_predict(
     pred_y = torch.full((nby, nbx, 16, 16), 128, dtype=torch.int32, device=dev)
     for i9, g in enumerate(grids):
         pred_y = torch.where((inter & (idx == i9))[:, :, None, None], g, pred_y)
-
-    return MotionResult(inter, mvx, mvy, pred_y,
-                        _chroma_pred(prev_u, inter, mvx, mvy),
-                        _chroma_pred(prev_v, inter, mvx, mvy))
+    return inter, mvx, mvy, pred_y
 
 
-def _chroma_pred(plane: torch.Tensor, inter: torch.Tensor,
-                 mvx: torch.Tensor, mvy: torch.Tensor) -> torch.Tensor:
-    """Chroma prediction: luma mv halved, own half-pel interp (RTL:1847-1917)."""
+def _chroma_plane(plane_h: torch.Tensor, inter: torch.Tensor,
+                  mvx: torch.Tensor, mvy: torch.Tensor) -> torch.Tensor:
     hyb = (((mvy >> 1) & 1) > 0)[:, :, None, None]
     hxb = (((mvx >> 1) & 1) > 0)[:, :, None, None]
-    w9 = _windows(plane, 4, 8, 9, mvy >> 2, mvx >> 2)
+    w9 = _windows(plane_h, CHROMA_HALO, 8, 9, mvy >> 2, mvx >> 2)
     p00 = w9[..., :8, :8]
     ph = (1 + p00 + w9[..., :8, 1:9]) >> 1
     pv = (1 + p00 + w9[..., 1:9, :8]) >> 1
     pm = (1 + p00 + w9[..., :8, 1:9] + w9[..., 1:9, :8] + w9[..., 1:9, 1:9]) >> 2
     p = torch.where(hyb & hxb, pm, torch.where(hxb, ph, torch.where(hyb, pv, p00)))
     return torch.where(inter[:, :, None, None], p, 128).to(torch.int32)
+
+
+def chroma_pred(prev_u_h: torch.Tensor, prev_v_h: torch.Tensor,
+                inter: torch.Tensor, mvx: torch.Tensor, mvy: torch.Tensor,
+                ur: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chroma prediction, the plain version of the chroma kernel (JAX
+    ops/pallas/me.py::_chroma_predict): the luma mv halved with the
+    arithmetic shift, mv>>2 full-pel plus the (mv>>1)&1 half flags, and its
+    own half-pel interpolation (RTL:1847-1917).  prev_*_h: (Hl/2 + 8, W/2)
+    uint8 with a 4-row halo each side -> (pred_u, pred_v) (nby, nbx, 8, 8)
+    int32.  ``ur`` bounds mv>>2 and needs no other use here."""
+    del ur
+    return (_chroma_plane(prev_u_h, inter, mvx, mvy),
+            _chroma_plane(prev_v_h, inter, mvx, mvy))
+
+
+def estimate_and_predict_local(
+    cur_y: torch.Tensor,       # (Hl, W) uint8: a band of macroblock rows
+    prev_y_h: torch.Tensor,    # (Hl + 16, W): recon band + 8-row halo each side
+    prev_u_h: torch.Tensor,    # (Hl/2 + 8, W/2): + 4-row halo
+    prev_v_h: torch.Tensor,
+    is_iframe: bool,
+    yr: int,
+    ur: int,
+    first_mb_row: int,         # global MB row of local row 0
+    total_mb_rows: int,        # global MB row count
+    as_planes: bool = False,   # pred as pixel planes (the transform kernel's form)
+) -> MotionResult:
+    """Band-local motion estimation for slice-row sharding: the whole-frame
+    math on a band whose reference halos were already exchanged, with
+    frame-edge masking on GLOBAL rows (JAX ops/motion.py:213-262).  The
+    plain version of the fused kernel: estimate_luma, then chroma_pred."""
+    inter, mvx, mvy, pred_y = estimate_luma(cur_y, prev_y_h, is_iframe, yr,
+                                            first_mb_row, total_mb_rows)
+    pred_u, pred_v = chroma_pred(prev_u_h, prev_v_h, inter, mvx, mvy, ur)
+    if as_planes:
+        pred_y, pred_u, pred_v = to_planes(pred_y), to_planes(pred_u), to_planes(pred_v)
+    return MotionResult(inter, mvx, mvy, pred_y, pred_u, pred_v)
+
+
+def estimate_and_predict(
+    cur_y: torch.Tensor,       # (H, W) uint8 current luma
+    cur_u: torch.Tensor,       # (H/2, W/2) uint8 (unused: the RTL searches luma)
+    cur_v: torch.Tensor,
+    prev_y: torch.Tensor,      # previous recon planes, uint8
+    prev_u: torch.Tensor,
+    prev_v: torch.Tensor,
+    is_iframe: bool,
+    yr: int,                   # luma search range
+    ur: int,                   # chroma search range
+) -> MotionResult:
+    """The whole frame as one band: zero halos, global rows 0..nby-1."""
+    return estimate_and_predict_local(
+        cur_y, pad_halo(prev_y, LUMA_HALO), pad_halo(prev_u, CHROMA_HALO),
+        pad_halo(prev_v, CHROMA_HALO), is_iframe, yr, ur, 0, cur_y.shape[0] // 16)
 
 
 def estimate_and_predict_planes(
@@ -202,9 +276,5 @@ def estimate_and_predict_planes(
     ((H, W) / (H/2, W/2) int32), the form the transform stage consumes."""
     mr = estimate_and_predict(cur_y, cur_u, cur_v, prev_y, prev_u, prev_v,
                               is_iframe, yr, ur)
-
-    def unblk(t):
-        nb_y, nb_x, bs, _ = t.shape
-        return t.permute(0, 2, 1, 3).reshape(nb_y * bs, nb_x * bs)
-    return MotionResult(mr.inter, mr.mvx, mr.mvy, unblk(mr.pred_y),
-                        unblk(mr.pred_u), unblk(mr.pred_v))
+    return mr._replace(pred_y=to_planes(mr.pred_y), pred_u=to_planes(mr.pred_u),
+                       pred_v=to_planes(mr.pred_v))

@@ -7,7 +7,8 @@ PyTorch; there tests/conftest.py (which imports jax) is left out:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 All equality is exact: this is an integer codec.  The shapes are small
-(64x64 and 416x64, nbx = 26); chip_smoke.py covers 1920x1152.
+(64x64, 416x64 with nbx = 26, and 2048x32 with nbx = 128, the widest frame);
+chip_smoke.py covers 1920x1152.
 """
 import numpy as np
 import pytest
@@ -19,10 +20,12 @@ from fpga_mpeg2_encoder_tpu_torch import Encoder, EncoderConfig
 from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
+from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
 
 pytestmark = pytest.mark.cuda
+MAIN_PATH = ("me_fused", "transform", "acsym", "pack_slots", "merge_rows")
 
 
 @pytest.fixture
@@ -118,6 +121,135 @@ def test_pack_and_merge_kernels_equal_plain(dev, r, s, cap):
         assert torch.equal(mw, pw) and int(mb) == int(pb)
 
 
+def test_pack_symbols_wrapper_equals_plain(dev):
+    """pack_symbols launches the pack_slots kernel and no kernel of its own."""
+    slots = _slots(dev, 6, 3 + 394 * 26, 3)
+    codes, lens = slots & ((1 << 27) - 1), slots >> 27
+    before = dict(_build.LAUNCHES)
+    got = k_pack.pack_symbols(codes, lens, 4096)
+    torch.cuda.synchronize()
+    for g, w in zip(got, bitpack.pack_symbols(codes, lens, 4096)):
+        assert torch.equal(g, w)
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before if _build.LAUNCHES[k] != before[k]} \
+        == {"pack_slots": 1}
+
+
+def _me_planes(dev, w, h, kind, yr):
+    """(cur_y, prev_y, prev_u, prev_v) 4:2:0 planes on ``dev``.  pan: real
+    motion; flat: every SAD ties (the tie-break and the edge masks decide);
+    noise: every SAD is above 4095 (all invalid -> mv (0, 0)); white:
+    near-white blocks with dark specks, whose pixel sum plus mean deviation
+    wraps the 16-bit intra accumulator; far-, far+: smooth content moving
+    yr + 1 pixels up and left (down and right), past the search range, where
+    the half-pel step beyond +-yr must stay masked; inward, half-left: noise
+    whose exact full-pel (half-pel) match lies above (left of) the frame,
+    where the edge masks forbid it; stripes: even rows constant along x
+    moving half a pixel down, so the half-pel candidates tie left to right
+    and the tournament keeps the lower index."""
+    if kind in ("inward", "half-left", "stripes"):
+        prev = np.random.default_rng(w * h).integers(0, 256, (h, w))
+        if kind == "stripes":
+            prev = np.repeat(prev[:, :1] & ~1, w, axis=1)
+        p = np.pad(prev, 1)
+        if kind == "inward":
+            cur = np.zeros_like(prev)
+            cur[2:] = prev[:-2]
+        elif kind == "half-left":
+            cur = (1 + prev + p[1:-1, :-2]) >> 1
+        else:
+            cur = (1 + prev + p[:-2, 1:-1]) >> 1
+        planes = [cur, prev, prev[::2, ::2], prev[1::2, 1::2]]
+        return tuple(torch.as_tensor(np.ascontiguousarray(p).astype(np.uint8), device=dev)
+                     for p in planes)
+    if kind.startswith("far"):
+        s = (yr + 1) * (1 if kind == "far-" else -1)
+        yy, xx = np.mgrid[-16:h + 16, -16:w + 16]
+        base = 128 + 60 * np.sin(xx / 5.0) + 50 * np.cos(yy / 7.0)
+        prev, cur = base[16:16 + h, 16:16 + w], base[16 - s:16 - s + h, 16 - s:16 - s + w]
+        planes = [cur, prev, prev[::2, ::2], prev[1::2, 1::2]]
+        return tuple(torch.as_tensor(np.ascontiguousarray(p).astype(np.uint8), device=dev)
+                     for p in planes)
+    if kind == "pan":
+        f0, f1 = _video(w + h, w, h, 2)
+        y0, u0, v0 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f0))
+        y1 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f1))[0]
+        return y1, y0, u0, v0
+    rng = np.random.default_rng(w * h)
+    shapes = [(h, w), (h, w), (h // 2, w // 2), (h // 2, w // 2)]
+    if kind == "flat":
+        planes = [np.full(s, 100, np.uint8) for s in shapes]
+    elif kind == "noise":
+        planes = [rng.integers(0, 256, s, dtype=np.uint8) for s in shapes]
+    else:
+        planes = [np.where(rng.random(s) < 0.06, 0, 255).astype(np.uint8) for s in shapes]
+    return tuple(torch.as_tensor(p, device=dev) for p in planes)
+
+
+def _equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("w,h", [(64, 64), (416, 64), (2048, 32)])
+@pytest.mark.parametrize("vl", [1, 3])
+@pytest.mark.parametrize("kind", ["pan", "flat", "noise", "white", "far-", "far+", "inward",
+                                  "half-left", "stripes"])
+def test_me_kernels_equal_plain(dev, w, h, vl, kind):
+    """The fused, luma and chroma kernels against their plain versions, I
+    and P frames, tiles and planes; the fused kernel equals the luma kernel
+    followed by the chroma kernel."""
+    yr, ur = 2 * vl, vl
+    cur, py, pu, pv = _me_planes(dev, w, h, kind, yr)
+    halos = (motion.pad_halo(py, 8), motion.pad_halo(pu, 4), motion.pad_halo(pv, 4))
+    for is_i in (False, True):
+        for as_plane in (False, True):
+            want = motion.estimate_and_predict_local(cur, *halos, is_i, yr, ur, 0, h // 16,
+                                                     as_plane)
+            fused = _launched("me_fused", lambda: k_me.motion_estimate_fused(
+                cur, py, pu, pv, is_i, yr, ur, as_plane=as_plane))
+            _equal(fused, want)
+            luma = _launched("me_luma", lambda: k_me.motion_estimate(
+                cur, py, is_i, yr, as_plane=as_plane))
+            _equal(luma, want[:4])
+            chroma = _launched("chroma_pred", lambda: k_me.chroma_pred(
+                pu, pv, *luma[:3], ur, as_plane=as_plane))
+            _equal(chroma, want[4:])
+            _equal(fused, luma + chroma)
+    # chroma on an inter map that is not the search's own
+    mixed = torch.as_tensor(np.random.default_rng(vl).random(fused[0].shape) < 0.5,
+                            device=dev)
+    got = _launched("chroma_pred", lambda: k_me.chroma_pred(pu, pv, mixed, *fused[1:3], ur))
+    _equal(got, motion.chroma_pred(*halos[1:], mixed, *fused[1:3], ur))
+
+
+@pytest.mark.parametrize("form", ["fused", "split"])
+@pytest.mark.parametrize("backward", [False, True])
+def test_me_kernels_middle_band_equal_plain(dev, form, backward):
+    """The band form (halo rows, global MB rows): MB rows 2..5 of 8, whose
+    seams must not be taken for frame edges.  The pan moves down and right,
+    or, ``backward``, up and left, so the best candidates of the band's top
+    or bottom row lie across a seam."""
+    w, h, r0, r1 = 96, 128, 2, 6
+    f0, f1 = _video(7, w, h, 2)[::-1 if backward else 1]
+    y0, u0, v0 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f0))
+    y1 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f1))[0]
+    band = (y1[16 * r0:16 * r1], y0[16 * r0 - 8:16 * r1 + 8],
+            u0[8 * r0 - 4:8 * r1 + 4], v0[8 * r0 - 4:8 * r1 + 4])
+    for as_plane in (False, True):
+        want = motion.estimate_and_predict_local(*band, False, 6, 3, r0, h // 16, as_plane)
+        if form == "fused":
+            got = _launched("me_fused", lambda: k_me.estimate_and_predict_local(
+                *band, False, 6, 3, r0, h // 16, as_plane))
+        else:
+            got = _launched("me_luma", lambda: k_me.motion_estimate(
+                band[0], band[1], False, 6, r0, h // 16, halo=True, as_plane=as_plane))
+            got += _launched("chroma_pred", lambda: k_me.chroma_pred(
+                *band[2:], *got[:3], 3, halo=True, as_plane=as_plane))
+        _equal(got, want)
+        assert want.inter.any()
+
+
 def test_wrappers_check_inputs(dev):
     slots = _slots(dev, 2, 100, 0)
     with pytest.raises(TypeError, match="dtype"):
@@ -128,18 +260,25 @@ def test_wrappers_check_inputs(dev):
     with pytest.raises(ValueError, match="several devices"):
         k_acsym.ac_slot_grid(torch.zeros((1, 384), dtype=torch.int32),
                              torch.zeros((1, 397), dtype=torch.int64, device=dev))
+    y = torch.zeros((64, 64), dtype=torch.uint8, device=dev)
+    c = torch.zeros((32, 32), dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        k_me.motion_estimate(y, y.to(torch.int32), False, 6)
+    with pytest.raises(ValueError, match="shape"):
+        k_me.motion_estimate_fused(y, y, c, c, False, 6, 3, halo=True)
 
 
 @pytest.mark.parametrize("w,chunk,caps", [
     (416, 1, {}), (416, 3, {}), (64, 3, dict(row_cap=64, frame_cap=256))])
 def test_encoder_on_card_equals_cpu(dev, w, chunk, caps):
     """Whole streams on the card equal the plain versions' on the CPU, with
-    every kernel launched once per frame; the tiny caps force the host
-    overflow retry."""
+    every main-path kernel launched once per frame and the split motion
+    kernels never; the tiny caps force the host overflow retry."""
     cfg = EncoderConfig(xl=5, yl=4)
     frames = _video(w + chunk, w, 64, 5, "noise" if caps else "pan")
     _build.reset_launches()
     got = Encoder(cfg, device=dev, **caps).encode(frames, w, 64, 2, chunk_frames=chunk)
-    assert all(n >= 5 for n in _build.LAUNCHES.values()), _build.LAUNCHES
+    assert all(_build.LAUNCHES[k] >= 5 for k in MAIN_PATH), _build.LAUNCHES
+    assert _build.LAUNCHES["me_luma"] == _build.LAUNCHES["chroma_pred"] == 0
     want = Encoder(cfg, device="cpu", **caps).encode(frames, w, 64, 2, chunk_frames=chunk)
     assert got == want

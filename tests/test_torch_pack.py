@@ -70,6 +70,29 @@ def test_pack_slots_matches_jax(interpret_pack, r, s, cap, impls):
         assert np.array_equal(words.numpy(), np.asarray(ww).astype(np.int64)), impl
 
 
+def test_pack_symbols_matches_jax(interpret_pack):
+    """pack_symbols, the plain version and the port's wrapper on CPU tensors,
+    against the JAX package's XLA pack_symbols and its Pallas pack_symbols
+    (interpreted), on rows that do not overflow."""
+    slots = _slots(4, 300, 11)
+    lens = slots >> 27
+    codes = slots & ((1 << 27) - 1) & ((1 << lens) - 1)
+    jcodes, jlens = jnp.asarray(codes.astype(np.uint32)), jnp.asarray(lens.astype(np.int32))
+    jbitpack._PACK_IMPL = "xla"
+    wants = [jbitpack.pack_symbols(jcodes, jlens, 320),
+             k_pack.pack_symbols_pallas(jcodes, jlens, 320)]
+    before = dict(_build.LAUNCHES)
+    for words, bits, ovf in (bitpack.pack_symbols(*map(torch.from_numpy, (codes, lens)), 320),
+                             port_kernel.pack_symbols(*map(torch.from_numpy, (codes, lens)),
+                                                      320)):
+        assert not bool(ovf)
+        for ww, wb, wovf in wants:
+            assert not bool(wovf)
+            assert np.array_equal(bits.numpy(), np.asarray(wb))
+            assert np.array_equal(words.numpy(), np.asarray(ww).astype(np.int64))
+    assert _build.LAUNCHES == before
+
+
 @pytest.mark.parametrize("r,c,cap,pallas", [(5, 256, 512, True),
                                              (33, 128, 8192, False)])
 def test_merge_rows_matches_jax(interpret_pack, r, c, cap, pallas):
