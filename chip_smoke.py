@@ -6,7 +6,8 @@
 Phases, one line each (any failure raises and the exit code is non-zero):
 1. device: card name and power limit; fails without a CUDA device;
 2. build: compiles the kernels of fpga_mpeg2_encoder_tpu_torch/csrc and
-   prints each kernel's registers and spills;
+   prints each kernel's registers and spills, and the count of VABSDIFF4
+   (the motion search's byte-SIMD instruction) in me_fused_kernel's SASS;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    1920x1152, 416x64 and 64x64 shapes of bench.py content, exact equality
    (an integer codec: the tolerance is zero); the motion kernels for I and
@@ -44,7 +45,12 @@ CAPS = dict(row_cap=4096, frame_cap=262144)
 SEQ_CAP = 8388608
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 64 INT32 lanes per clock
-SAD_PER_OP = 4                 # byte-SIMD __vsadu4: four absolute-difference adds
+# byte-SIMD __vsadu4 (SASS VABSDIFF4): four absolute-difference adds.  Its
+# rate, measured by fpga_mpeg2_encoder_tpu_torch/tools/vabsdiff4_rate.py on an
+# H100 at 700 W, is 61.5-62.1 lanes per clock per SM with the loop's own
+# instructions issued beside it: the full INT32 rate, so the ME's bound uses
+# the INT32 peak.
+SAD_PER_OP = 4
 WORD_BYTES = 4                 # slots (code | len << 27) and packed words are 32-bit
                                # values, carried as int64 for the CPU's plain code
 MAIN_PATH = ("me_fused", "transform", "acsym", "pack_slots", "merge_rows")
@@ -64,6 +70,7 @@ SOURCES = {k: f"fpga_mpeg2_encoder_tpu_torch/csrc/{f}" for k, f in (
     ("merge_rows", "pack.cu"), ("me_fused", "me.cu"), ("me_luma", "me.cu"),
     ("chroma_pred", "me.cu"))}
 SOURCES["pack_symbols"] = "fpga_mpeg2_encoder_tpu_torch/ops/kernels/pack.py"
+REDESIGNED = {"me_fused": "PR 3", "transform": "PR 3"}
 KERNEL_SYMBOLS = {"transform": "transform_kernel", "acsym": "acsym_kernel",
                   "pack_slots": "pack_slots_kernel", "merge_rows": "merge_rows_kernel",
                   "me_fused": "me_fused_kernel", "me_luma": "me_luma_kernel",
@@ -179,6 +186,14 @@ def main():
           flush=True)
     for ln in ptxas:
         print(f"  ptxas: {ln}")
+    ops = [op.split()[1] if op.startswith("@") else op.split()[0]
+           for op in _build.sass(lib, "me_fused_kernel")]
+    vabs = [k for k, op in enumerate(ops) if op.startswith("VABSDIFF4")]
+    if not vabs:
+        raise AssertionError("me_fused_kernel: no VABSDIFF4 in its SASS")
+    print(f"2 sass me_fused_kernel: {len(vabs)} VABSDIFF4 of {len(ops)} instructions; "
+          f"{vabs[-1] - vabs[0] + 1} instructions from the first VABSDIFF4 to the last",
+          flush=True)
 
     # ---- 3. kernels against their plain versions --------------------------------
     cfg = EncoderConfig(xl=7, yl=7, vector_level=3, q_level=2)
@@ -196,7 +211,9 @@ def main():
         # motion: fused, luma, chroma, I and P; the fused kernel is also held
         # against the luma kernel followed by the chroma kernel
         me_in = nbytes(y1, y0, u0, v0)
-        me_out = n_mb * 9 + 4 * (y1.numel() + u0.numel() + v0.numel())
+        me_out = nbytes(*k_me.motion_estimate_fused(y1, y0, u0, v0, False, yr, ur,
+                                                    as_plane=True))
+        luma_out = nbytes(*k_me.motion_estimate(y1, y0, False, yr, as_plane=True))
         for is_i in (False, True):
             tag = "I" if is_i else "P"
             # the search: (2yr+1)^2 full-pel + 9 half-pel + 1 intra candidate
@@ -213,9 +230,10 @@ def main():
                            lambda i=is_i: k_me.motion_estimate(y1, y0, i, yr, as_plane=True),
                            lambda i=is_i: (lambda r: (*r[:3], motion.to_planes(r[3])))(
                                motion.estimate_luma(y1, motion.pad_halo(y0, 8), i, yr, 0, nby)),
-                           (nbytes(y1, y0) + n_mb * 9 + 4 * y1.numel(), ops)))
+                           (nbytes(y1, y0) + luma_out, ops)))
         inter, mvx, mvy = k_me.motion_estimate_fused(y1, y0, u0, v0, False, yr, ur)[:3]
         mixed = (torch.rand((nby, nbx), generator=gen) < 0.5).to(dev)
+        chroma_out = nbytes(*k_me.chroma_pred(u0, v0, inter, mvx, mvy, ur, as_plane=True))
         for label, imap in (("P maps", inter), ("mixed inter map", mixed)):
             n_inter = int(imap.sum())
             checks.append((label, "chroma_pred",
@@ -224,7 +242,7 @@ def main():
                            lambda m=imap: tuple(map(motion.to_planes, motion.chroma_pred(
                                motion.pad_halo(u0, 4), motion.pad_halo(v0, 4), m, mvx,
                                mvy, ur))),
-                           (nbytes(u0, v0, imap, mvx, mvy) + 8 * u0.numel(),
+                           (nbytes(u0, v0, imap, mvx, mvy) + chroma_out,
                             n_inter * 128 * 4)))
         for is_i in (False, True):
             split = k_me.motion_estimate(y1, y0, is_i, yr, as_plane=True)
@@ -421,6 +439,8 @@ def main():
         row = {"name": kname, "route": "cuda", "source": SOURCES[kname],
                "replaces": REPLACES[kname], "launches": launches_b.get(kname, 0),
                "max_abs_err": err, **t}
+        if kname in REDESIGNED:
+            row["redesigned"] = REDESIGNED[kname]
         if kname == "pack_symbols":
             row["note"] = ("wrapper over pack_slots: forms the slots and launches the "
                            "pack_slots kernel, no kernel of its own")

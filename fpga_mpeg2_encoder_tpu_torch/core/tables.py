@@ -33,6 +33,22 @@ ZIGZAG_INV = np.argsort(ZIGZAG_FLAT)                          # zig[z] = raster_
 
 W1, W2, W3, W5, W6, W7 = 2841, 2676, 2408, 1609, 1108, 565    # 2048*sqrt(2)*cos(k*pi/16)
 
+
+def intra_reciprocal():
+    """The intra quantiser's division by INTRA_Q as a multiply: per raster
+    position (magic, shift), uint32 and int32 arrays of 64, such that
+    n // INTRA_Q.flat[p] == (n * magic[p] >> 32) >> shift[p] for every
+    16-bit n.  The shift is the largest (<= 7) that keeps the magic below
+    2**32; csrc/transform.cu carries the same two tables as literals."""
+    magic, shift = [], []
+    for d in INTRA_Q.reshape(-1).tolist():
+        s = 7
+        while -(-(1 << (32 + s)) // d) >= 1 << 32:
+            s -= 1
+        magic.append(-(-(1 << (32 + s)) // d))
+        shift.append(s)
+    return np.array(magic, dtype=np.uint32), np.array(shift, dtype=np.int32)
+
 # 2-D forward DCT as one 64x64 integer matrix: F2d = M @ X @ M^T has no intermediate
 # rounding in the reference (phase-1 result g_dct_res1 is kept at full precision,
 # RTL/mpeg2encoder.v:2029-2057), so F2d.flat = kron(M, M) @ X.flat exactly.

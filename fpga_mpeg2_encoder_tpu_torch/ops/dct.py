@@ -145,14 +145,14 @@ def transform_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
                     inter: torch.Tensor, q_level: int):
     """The whole transform loop (RTL:1924-2357) on 4:2:0 planes.
 
-    cur_*: (H, W) / (H/2, W/2) uint8; pred_*: int32 planes of the same shapes;
+    cur_*: (H, W) / (H/2, W/2) uint8; pred_*: uint8 planes of the same shapes;
     inter: (nby, nbx) bool.  Returns (quant_zig (nby, nbx, 6, 64) int32 in
     zig-zag order with tiles Y00, Y01, Y10, Y11, U, V; recon_y, recon_u,
     recon_v uint8 planes)."""
     h, w = cur_y.shape
     nby, nbx = h // 16, w // 16
 
-    def tiles(y, u, v):
+    def tiles(y, u, v):      # widened before cur - pred: uint8 would wrap
         return _tiles(_blockify(y.to(torch.int64), 16),
                       _blockify(u.to(torch.int64), 8),
                       _blockify(v.to(torch.int64), 8))

@@ -14,12 +14,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -40,6 +42,7 @@ LAUNCHES: Dict[str, int] = {"transform": 0, "acsym": 0, "pack_slots": 0,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "mpeg2_transform": [_P] * 11 + [_I, _I, _I, _P],
+    "mpeg2_transform_stage": [_P] * 4 + [_I, _I, _I, _P],
     "mpeg2_acsym": [_P, _P, _P, _I, _I, _P],
     "mpeg2_pack_slots": [_P, _P, _P, _I, _I, _I, _P],
     "mpeg2_merge_rows": [_P, _P, _P, _I, _I, _I, _P],
@@ -57,12 +60,37 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): under CUDA_HOME, on
+    PATH, or (cuobjdump) the copy in Triton's package."""
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name),
+             shutil.which(name)]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        cands.append(os.path.join(os.path.dirname(spec.origin), "backends", "nvidia",
+                                  "bin", name))
+    for cand in cands:
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise RuntimeError(f"{name} not found: set CUDA_HOME or put it on PATH")
+
+
+def sass(lib: str, kernel: str) -> List[str]:
+    """The SASS instructions of the kernel whose symbol contains ``kernel``
+    in the shared library ``lib``, from cuobjdump, one opcode line each."""
+    res = subprocess.run([cuda_tool("cuobjdump"), "-sass", lib], capture_output=True,
+                         text=True, check=True)
+    out, inside = [], False
+    for ln in res.stdout.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln.split("Function :")[1]
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", ln)
+        if inside and m:
+            out.append(m.group(1))
+    if not out:
+        raise RuntimeError(f"no SASS for {kernel} in {lib}")
+    return out
 
 
 def library_path() -> str:
@@ -86,7 +114,7 @@ def build() -> str:
     os.close(fd)
     try:
         res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+            [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp,
              *(os.path.join(CSRC, s) for s in SOURCES)],
             capture_output=True, text=True)
         if res.returncode != 0:
@@ -113,16 +141,18 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, counter: str, device: torch.device, *args) -> None:
+def launch(name: str, counter: Optional[str], device: torch.device, *args) -> None:
     """Call C entry point ``name`` with ``args`` (tensors become device
-    pointers) and the current stream of ``device``; raise on a launch error."""
+    pointers) and the current stream of ``device``; raise on a launch error.
+    Adds one to LAUNCHES[counter]; a test probe passes None."""
     lib = library()
     conv = [t.data_ptr() if torch.is_tensor(t) else t for t in args]
     with torch.cuda.device(device):
         err = getattr(lib, name)(*conv, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    LAUNCHES[counter] += 1
+    if counter is not None:
+        LAUNCHES[counter] += 1
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -140,10 +170,15 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, align: int = 1) -> None:
+    """Raise unless ``t`` has this dtype and shape, is contiguous and its
+    data starts on an ``align``-byte boundary (for the kernels' vector
+    loads)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data must be {align}-byte aligned")

@@ -11,18 +11,19 @@ The JAX package reaches the last two only as a demotion rung; here they are
 public functions that are held against their plain versions and against
 the fused kernel, and the encoder never switches to them.
 
-What bounds the search on the card is integer throughput, just ahead of
-memory: at 1920x1152, yr = 6, a P-frame is 8640 x 169 x 256 = 374 M
-absolute-difference adds for the full-pel search alone, 5.6 us at the INT32
-peak with four byte differences per instruction (__vsadu4), against 18.9 MB
-of input and output, 5.6 us at 3.35 TB/s.
-The kernel runs one block per macroblock with the block and its 30x30
-reference window in shared memory, one thread per full-pel candidate and one
-thread per pixel for the half-pel stage, so every reference pixel is read
-from device memory once per block and nothing between the search and the
-prediction leaves the SM.  An
-I-frame skips the search, as its result (intra, mv 0, prediction 128) does
-not depend on it.
+What bounds the search on the card is integer throughput: at 1920x1152,
+yr = 6, a P-frame is 8640 x 169 x 256 = 374 M absolute-difference adds for
+the full-pel search alone, four to a byte-SIMD VABSDIFF4 instruction
+(__vsadu4), against 8.3 MB of input and uint8 output.  The kernel runs one
+block of 128 threads per macroblock with the block and a 30-row x 32-byte
+reference window in shared memory as bytes.  Thread (dy, two block rows)
+keeps its window rows in registers and forms the row SADs of all 13 dx from
+them with funnel shifts and VABSDIFF4; a shuffle sum over the rows gives
+each candidate's SAD.  Two pixels a thread then run the half-pel stage and
+one warp the decision, so every reference pixel is read from device memory
+once per block and nothing between the search and the prediction leaves the
+SM.  An I-frame skips the search, as its result (intra, mv 0, prediction
+128) does not depend on it.  Predictions are uint8.
 
 Every function takes the JAX functions' arguments: ``halo`` says the
 reference planes carry 8 luma / 4 chroma halo rows each side (the band form
@@ -51,7 +52,7 @@ def _meta(nby: int, nbx: int, dev):
 
 def _pred(nby: int, nbx: int, bs: int, as_plane: bool, dev) -> torch.Tensor:
     shape = (nby * bs, nbx * bs) if as_plane else (nby, nbx, bs, bs)
-    return torch.empty(shape, dtype=torch.int32, device=dev)
+    return torch.empty(shape, dtype=torch.uint8, device=dev)
 
 
 def _band(cur_y: torch.Tensor, yr: int, total_mb_rows: Optional[int]):
@@ -67,7 +68,7 @@ def _check_planes(nby: int, nbx: int, halo: bool, luma=None, chroma=()):
     """Check the reference planes' shapes: nby*bs rows plus the halo rows."""
     if luma is not None:
         _build.check(luma, "prev_y", torch.uint8,
-                     (nby * 16 + (16 if halo else 0), nbx * 16))
+                     (nby * 16 + (16 if halo else 0), nbx * 16), align=8)
     for t, name in chroma:
         _build.check(t, name, torch.uint8, (nby * 8 + (8 if halo else 0), nbx * 8))
 
@@ -79,7 +80,7 @@ def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe: bool, yr: in
     """cur_y (H, W) uint8; prev_y (H, W) uint8, or (H + 16, W) with ``halo``;
     prev_u/prev_v (H/2, W/2), or (H/2 + 8, W/2) with ``halo`` -> (inter
     (nby, nbx) bool, mvx, mvy (nby, nbx) int32 half-pel, pred_y, pred_u,
-    pred_v int32)."""
+    pred_v uint8)."""
     nby, nbx, total = _band(cur_y, yr, total_mb_rows)
     if _build.on_cpu(cur_y, prev_y, prev_u, prev_v):
         if not halo:
@@ -89,7 +90,7 @@ def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe: bool, yr: in
         return tuple(motion.estimate_and_predict_local(
             cur_y, prev_y, prev_u, prev_v, bool(is_iframe), yr, ur, first_mb_row,
             total, as_plane))
-    _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16))
+    _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16), align=8)
     _check_planes(nby, nbx, halo, prev_y, ((prev_u, "prev_u"), (prev_v, "prev_v")))
     dev = cur_y.device
     inter, mvx, mvy = _meta(nby, nbx, dev)
@@ -112,7 +113,7 @@ def motion_estimate(cur_y, prev_y, is_iframe: bool, yr: int, first_mb_row: int =
         inter, mvx, mvy, pred_y = motion.estimate_luma(
             cur_y, prev_y, bool(is_iframe), yr, first_mb_row, total)
         return inter, mvx, mvy, motion.to_planes(pred_y) if as_plane else pred_y
-    _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16))
+    _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16), align=8)
     _check_planes(nby, nbx, halo, prev_y)
     dev = cur_y.device
     inter, mvx, mvy = _meta(nby, nbx, dev)
@@ -127,7 +128,7 @@ def chroma_pred(prev_u, prev_v, inter, mvx, mvy, ur: int, halo: bool = False,
                 as_plane: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chroma half of motion_estimate_fused: prev_u/prev_v (H/2, W/2) uint8,
     or (H/2 + 8, W/2) with ``halo``, and the (nby, nbx) inter/mvx/mvy maps ->
-    (pred_u, pred_v) int32."""
+    (pred_u, pred_v) uint8."""
     nby, nbx = inter.shape
     if _build.on_cpu(prev_u, prev_v, inter, mvx, mvy):
         if not halo:

@@ -3,14 +3,19 @@ dequantise, Chen-Wang IDCT and reconstruction of a whole frame, with the
 quantised coefficients written in zig-zag tile-major order.
 
 Replaces ops/pallas/transform.py::transform_recon_pallas of the JAX package.
-Per macroblock it moves 3.8 KB through device memory (384 pixels and 384
-int32 predictions in, 384 int32 coefficients and 384 pixels out) for a few
-thousand integer operations: at 1920x1152 that is 33 MB, about 10 us at the
-H100's 3.35 TB/s.  The kernel keeps each macroblock's six tiles in shared
-memory from residual to reconstruction, so every byte crosses device memory
-once; what bounds it now is latency inside the block (the 8-tap loops and
-the IDCT passes between barriers), see PERF.md.  On CPU tensors the plain
-version ops/dct.py::transform_recon runs instead.
+Per macroblock it moves 2.7 KB through device memory (384 pixels and 384
+uint8 predictions in, 384 int32 coefficients and 384 pixels out) for a few
+thousand integer operations: at 1920x1152 that is 23 MB, about 7 us at the
+H100's 3.35 TB/s, so device memory bounds it.  The kernel runs 8 threads per
+8x8 tile in every phase, 8 macroblocks per block, with 8-byte pixel loads
+and stores, the tile turned between passes in shared memory within a warp,
+a multiply in place of the intra division, and the coefficients written in
+16-byte stores.  On CPU tensors the plain version ops/dct.py::transform_recon
+runs instead.
+
+``transform_stage`` runs one stage of the kernel's own device code on int32
+tiles of any value: the tests reach through it the wraps and clamps that
+pixel input never reaches.  It is off every path and has no launch count.
 """
 from __future__ import annotations
 
@@ -19,10 +24,12 @@ import torch
 from .. import dct
 from . import _build
 
+STAGES = ("fdct", "quantize", "idct")
+
 
 def transform_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
                     inter: torch.Tensor, q_level: int):
-    """cur_*: (H, W) / (H/2, W/2) uint8; pred_*: int32 planes of the same
+    """cur_*: (H, W) / (H/2, W/2) uint8; pred_*: uint8 planes of the same
     shapes; inter: (H/16, W/16) bool.  Returns (quant_zig (nby, nbx, 6, 64)
     int32, recon_y, recon_u, recon_v uint8)."""
     args = (cur_y, cur_u, cur_v, pred_y, pred_u, pred_v, inter)
@@ -32,15 +39,15 @@ def transform_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
     if h % 16 or w % 16:
         raise ValueError(f"frame {h}x{w} is not a multiple of 16")
     nby, nbx = h // 16, w // 16
-    for t, name, dt, shape in (
-            (cur_y, "cur_y", torch.uint8, (h, w)),
-            (cur_u, "cur_u", torch.uint8, (h // 2, w // 2)),
-            (cur_v, "cur_v", torch.uint8, (h // 2, w // 2)),
-            (pred_y, "pred_y", torch.int32, (h, w)),
-            (pred_u, "pred_u", torch.int32, (h // 2, w // 2)),
-            (pred_v, "pred_v", torch.int32, (h // 2, w // 2)),
-            (inter, "inter", torch.bool, (nby, nbx))):
-        _build.check(t, name, dt, shape)
+    for t, name, shape in (
+            (cur_y, "cur_y", (h, w)),
+            (cur_u, "cur_u", (h // 2, w // 2)),
+            (cur_v, "cur_v", (h // 2, w // 2)),
+            (pred_y, "pred_y", (h, w)),
+            (pred_u, "pred_u", (h // 2, w // 2)),
+            (pred_v, "pred_v", (h // 2, w // 2))):
+        _build.check(t, name, torch.uint8, shape, align=8)    # 8-byte row loads
+    _build.check(inter, "inter", torch.bool, (nby, nbx))
     dev = cur_y.device
     qzig = torch.empty((nby, nbx, 6, 64), dtype=torch.int32, device=dev)
     ry = torch.empty((h, w), dtype=torch.uint8, device=dev)
@@ -49,3 +56,28 @@ def transform_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
     _build.launch("mpeg2_transform", "transform", dev, *args,
                   qzig, ry, ru, rv, nby, nbx, q_level)
     return qzig, ry, ru, rv
+
+
+def transform_stage(stage: str, x: torch.Tensor, inter=None, q_level: int = 1):
+    """One stage of the transform kernel on (N, 8, 8) int32 tiles: "fdct"
+    -> the FDCT; "quantize" -> (quantised, dequantised), with inter (N,)
+    bool; "idct" -> the IDCT.  On CPU tensors ops/dct.py's stages run
+    instead.  Results are int32."""
+    if stage not in STAGES:
+        raise ValueError(f"stage {stage!r} not in {STAGES}")
+    if inter is None:
+        inter = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    if _build.on_cpu(x, inter):
+        if stage == "fdct":
+            return dct.fdct(x).to(torch.int32)
+        if stage == "idct":
+            return dct.idct(x).to(torch.int32)
+        q = dct.quantize(x.to(torch.int64), inter, q_level)
+        return q.to(torch.int32), dct.dequantize(q, inter, q_level).to(torch.int32)
+    n = x.shape[0]
+    _build.check(x, "x", torch.int32, (n, 8, 8))
+    _build.check(inter, "inter", torch.bool, (n,))
+    out, out2 = torch.empty_like(x), torch.empty_like(x)
+    _build.launch("mpeg2_transform_stage", None, x.device, x, inter, out, out2, n,
+                  STAGES.index(stage), q_level)
+    return (out, out2) if stage == "quantize" else out

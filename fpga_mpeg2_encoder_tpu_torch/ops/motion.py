@@ -39,8 +39,8 @@ class MotionResult(NamedTuple):
     inter: torch.Tensor      # (nby, nbx) bool
     mvx: torch.Tensor        # (nby, nbx) int32, half-pel units
     mvy: torch.Tensor        # (nby, nbx) int32
-    pred_y: torch.Tensor     # (nby, nbx, 16, 16) int32, or an (H, W) plane
-    pred_u: torch.Tensor     # (nby, nbx, 8, 8) int32, or an (H/2, W/2) plane
+    pred_y: torch.Tensor     # (nby, nbx, 16, 16) uint8, or an (H, W) plane
+    pred_u: torch.Tensor     # (nby, nbx, 8, 8) uint8, or an (H/2, W/2) plane
     pred_v: torch.Tensor
 
 
@@ -101,7 +101,7 @@ def estimate_luma(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Luma motion estimation + prediction: the plain version of the luma
     kernel (JAX ops/pallas/me.py::_me_body).  Returns (inter (nby, nbx) bool,
-    mvx, mvy (nby, nbx) int32 half-pel, pred_y (nby, nbx, 16, 16) int32)."""
+    mvx, mvy (nby, nbx) int32 half-pel, pred_y (nby, nbx, 16, 16) uint8)."""
     h, w = cur_y.shape
     nby, nbx = h // 16, w // 16
     dev = cur_y.device
@@ -195,10 +195,11 @@ def estimate_luma(
     mvy, mvx = mvy.to(torch.int32), mvx.to(torch.int32)
 
     # ---- luma prediction: selected half-pel grid, or 128 for intra ------------
+    # (computed in int32; every value is 0..255, so the uint8 cast is exact)
     pred_y = torch.full((nby, nbx, 16, 16), 128, dtype=torch.int32, device=dev)
     for i9, g in enumerate(grids):
         pred_y = torch.where((inter & (idx == i9))[:, :, None, None], g, pred_y)
-    return inter, mvx, mvy, pred_y
+    return inter, mvx, mvy, pred_y.to(torch.uint8)
 
 
 def _chroma_plane(plane_h: torch.Tensor, inter: torch.Tensor,
@@ -211,7 +212,7 @@ def _chroma_plane(plane_h: torch.Tensor, inter: torch.Tensor,
     pv = (1 + p00 + w9[..., 1:9, :8]) >> 1
     pm = (1 + p00 + w9[..., :8, 1:9] + w9[..., 1:9, :8] + w9[..., 1:9, 1:9]) >> 2
     p = torch.where(hyb & hxb, pm, torch.where(hxb, ph, torch.where(hyb, pv, p00)))
-    return torch.where(inter[:, :, None, None], p, 128).to(torch.int32)
+    return torch.where(inter[:, :, None, None], p, 128).to(torch.uint8)
 
 
 def chroma_pred(prev_u_h: torch.Tensor, prev_v_h: torch.Tensor,
@@ -222,7 +223,7 @@ def chroma_pred(prev_u_h: torch.Tensor, prev_v_h: torch.Tensor,
     arithmetic shift, mv>>2 full-pel plus the (mv>>1)&1 half flags, and its
     own half-pel interpolation (RTL:1847-1917).  prev_*_h: (Hl/2 + 8, W/2)
     uint8 with a 4-row halo each side -> (pred_u, pred_v) (nby, nbx, 8, 8)
-    int32.  ``ur`` bounds mv>>2 and needs no other use here."""
+    uint8.  ``ur`` bounds mv>>2 and needs no other use here."""
     del ur
     return (_chroma_plane(prev_u_h, inter, mvx, mvy),
             _chroma_plane(prev_v_h, inter, mvx, mvy))
@@ -273,7 +274,7 @@ def estimate_and_predict_planes(
     cur_y, cur_u, cur_v, prev_y, prev_u, prev_v, is_iframe: bool, yr: int, ur: int,
 ) -> MotionResult:
     """As estimate_and_predict, but pred_y/pred_u/pred_v are PIXEL PLANES
-    ((H, W) / (H/2, W/2) int32), the form the transform stage consumes."""
+    ((H, W) / (H/2, W/2) uint8), the form the transform stage consumes."""
     mr = estimate_and_predict(cur_y, cur_u, cur_v, prev_y, prev_u, prev_v,
                               is_iframe, yr, ur)
     return mr._replace(pred_y=to_planes(mr.pred_y), pred_u=to_planes(mr.pred_u),

@@ -1,0 +1,153 @@
+"""Mutation check of a kernel source on a CUDA card.
+
+    python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py me.cu [--jobs 4]
+    python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py transform.cu
+
+Each mutant breaks one exactness trap (or one step of the design) of the
+kernel source with a one-line change.  It runs in its own copy of the port
+package and of tests/test_torch_cuda.py under the package's git-ignored
+build/mutants/, which builds its own kernels, and there the card's tests of
+that source (``pytest --noconftest -x -k <selection>``) must fail.  The
+unchanged copy runs first and must pass.  Prints one line per mutant; exits
+1 if the baseline fails or a mutant is missed.
+"""
+import argparse
+import os
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(PKG)
+WORK = os.path.join(PKG, "build", "mutants")
+
+# source -> (the card tests' -k selection, [(name, text of the source, its
+# mutant)]); each text occurs once in its source
+MUTANTS = {
+    "me.cu": ("me_", [
+        ("overflow_mask", "const bool invalid = s > 4095 ||", "const bool invalid = s > 8191 ||"),
+        ("fullpel_edge_left", "(edge_l && dx < 0) ||", "false ||"),
+        ("fullpel_edge_top", "(edge_t && dy < 0) ||", "false ||"),
+        ("edge_top_global", "const bool edge_t = first_mb_row + by == 0;",
+         "const bool edge_t = by == 0;"),
+        ("edge_bottom_global", "const bool edge_b = first_mb_row + by == total_mb_rows - 1;",
+         "const bool edge_b = by == nby - 1;"),
+        ("tie_break", "(255u - lin)", "lin"),
+        ("all_invalid_centre", "kmin >= BIG ? yr * n + yr :", "kmin >= BIG ? 0 :"),
+        ("funnel_align", "return sh ? __funnelshift_r(wv[q], wv[q + 1], sh) : wv[q];",
+         "return sh ? __funnelshift_l(wv[q], wv[q + 1], sh) : wv[q];"),
+        ("pack_halves", "(j < NCAND / 2 ? hi[j] << 16 : 0u)", "(j < NCAND / 2 ? hi[j] << 15 : 0u)"),
+        ("unpack_halves", "hs = (r8 & 1) * 16;", "hs = (~r8 & 1) * 16;"),
+        ("range_end_dx", "if (r8 + 8 < NCAND)", "if (r8 + 8 < NCAND - 1)"),
+        ("rounding_line", "else if (hy == 0) v = (1 + a + b) >> 1;",
+         "else if (hy == 0) v = (a + b) >> 1;"),
+        ("rounding_diagonal", "else v = (1 + a + b + cc + d) >> 2;",
+         "else v = (a + b + cc + d) >> 2;"),
+        ("halfpel_edge_left", "bad = bad || edge_l || mvx_full == -yr;",
+         "bad = bad || mvx_full == -yr;"),
+        ("halfpel_edge_bottom", "bad = bad || edge_b || mvy_full == yr;",
+         "bad = bad || mvy_full == yr;"),
+        ("halfpel_range_left", "bad = bad || edge_l || mvx_full == -yr;", "bad = bad || edge_l;"),
+        ("halfpel_range_right", "bad = bad || edge_r || mvx_full == yr;", "bad = bad || edge_r;"),
+        ("halfpel_range_top", "bad = bad || edge_t || mvy_full == -yr;", "bad = bad || edge_t;"),
+        ("halfpel_range_bottom", "bad = bad || edge_b || mvy_full == yr;", "bad = bad || edge_b;"),
+        # Dropping the half-pel `s > 4095` has no effect, so it has no mutant:
+        # the intra value, at most 0xFFF, beats every value above 4095.  Nor
+        # has the window's zero fill: every candidate that reads outside the
+        # plane is masked by the frame edges.
+        ("substitute", "(bad || s > 4095) ? 0x1000 : s", "(bad || s > 4095) ? 0xFFF : s"),
+        ("intra_wrap", "(pixsum + hsum[9]) & 0xFFFF", "(pixsum + hsum[9]) & 0x1FFFF"),
+        ("intra_clip", "vals[9] = acc < 4096 ? acc : 0xFFF;", "vals[9] = acc < 4096 ? acc : 0x1000;"),
+        ("tournament_89", "(w89 <= x0123 && w89 <= x4567)", "(w89 < x0123 && w89 <= x4567)"),
+        ("tournament_pair", "if (vals[1] < w01)", "if (vals[1] <= w01)"),
+        ("mv_when_intra", "return {inter, mvx_full * 2 + hx_sel,",
+         "return {inter, inter ? mvx_full * 2 + hx_sel : 0,"),
+        ("iframe_pred", "pred_y[opix] = 128;", "pred_y[opix] = 127;"),
+        ("chroma_shift", "bx * 8 + (mvx >> 2) + c", "bx * 8 + (mvx / 4) + c"),
+        ("chroma_half_flag", "hx = (mvx >> 1) & 1;", "hx = (mvx / 2) & 1;"),
+        ("chroma_rounding", "if (hy && hx) v = (1 + a + b + cc + d) >> 2;",
+         "if (hy && hx) v = (a + b + cc + d) >> 2;"),
+    ]),
+    "transform.cu": ("transform", [
+        ("fdct_wrap17", "f[u] = ((acc & 0x1FFFF) ^ 0x10000) - 0x10000;", "f[u] = acc;"),
+        ("fdct_rounding", "acc = (acc >> 12) + ((acc >> 11) & 1);", "acc = acc >> 12;"),
+        ("quant_abs_wrap16", "(uint32_t)(f < 0 ? -f : f) & 0xFFFFu;",
+         "(uint32_t)(f < 0 ? -f : f);"),
+        ("quant_inter_wrap16", "q = ((a + 2u) & 0xFFFFu) >> (4 + q_level);",
+         "q = (a + 2u) >> (4 + q_level);"),
+        ("quant_intra_wrap16", "__umulhi(((a + off) & 0xFFFFu) >> q_level",
+         "__umulhi((a + off) >> q_level"),
+        ("dc_rounding", "q = (a >> 4) + ((a >> 3) & 1u);", "q = a >> 4;"),
+        ("quant_clamp", "if (q > 2047u) q = 2047u;", "if (q > 4095u) q = 4095u;"),
+        ("magic_entry", "3311782012u", "3311782011u"),
+        ("zigzag_store", "zig[m][t * 64 + qt.zig[p]] = qs;", "zig[m][t * 64 + p] = qs;"),
+        ("dequant_inter_clamp", "* (1 << q_level), -2047, 2047);",
+         "* (1 << q_level), -4095, 4095);"),
+        ("dequant_intra_clamp", "(3 - q_level),\n                -2047, 2047);",
+         "(3 - q_level),\n                -4095, 4095);"),
+        ("idct_trunc18", "tl[k * TS + i] = ((o[k] & 0x3FFFF) ^ 0x20000) - 0x20000;",
+         "tl[k * TS + i] = o[k];"),
+        ("idct_arith_shift", "return (uint32_t)((int32_t)v >> s);", "return v >> s;"),
+        ("idct_clamp", "clampi(o[k], -255, 255)", "clampi(o[k], -511, 511)"),
+        ("recon_clamp", "clampi((int32_t)byte_of(pw, k) + r[k], 0, 255)",
+         "(((int32_t)byte_of(pw, k) + r[k]) & 255)"),
+        # The IDCT's 32-bit wrap is that of its uint32 registers; no one-line
+        # change of the source removes it.
+    ]),
+}
+
+
+def run(source, select, name, old=None, new=None):
+    """Copy the package and the card tests, apply the mutant, run the tests:
+    (pytest's exit code, its last line)."""
+    d = os.path.join(WORK, source.split(".")[0] + "-" + name)
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(PKG, os.path.join(d, "fpga_mpeg2_encoder_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    os.makedirs(os.path.join(d, "tests"))
+    shutil.copy(os.path.join(ROOT, "tests", "test_torch_cuda.py"), os.path.join(d, "tests"))
+    if old is not None:
+        path = os.path.join(d, "fpga_mpeg2_encoder_tpu_torch", "csrc", source)
+        with open(path) as f:
+            src = f.read()
+        if src.count(old) != 1:
+            raise SystemExit(f"{name}: {old!r} occurs {src.count(old)} times in {source}")
+        with open(path, "w") as f:
+            f.write(src.replace(old, new))
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+         "-x", "-k", select, "tests/test_torch_cuda.py"],
+        cwd=d, env={**os.environ, "PYTHONPATH": d}, capture_output=True, text=True,
+        timeout=900)
+    lines = res.stdout.strip().splitlines()
+    return res.returncode, lines[-1] if lines else res.stderr.strip()[-200:]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("source", choices=sorted(MUTANTS), help="kernel source under csrc/")
+    ap.add_argument("--jobs", type=int, default=4, help="mutants run at once")
+    args = ap.parse_args()
+    select, mutants = MUTANTS[args.source]
+    rc, last = run(args.source, select, "baseline")
+    print(f"baseline: pytest rc={rc} {last}", flush=True)
+    if rc != 0:
+        return 1
+    missed = []
+    with ThreadPoolExecutor(args.jobs) as pool:
+        futs = [(m[0], pool.submit(run, args.source, select, *m)) for m in mutants]
+        for name, fut in futs:
+            rc, last = fut.result()
+            caught = rc == 1 and "failed" in last
+            if not caught:
+                missed.append(name)
+            print(f"mutant {name}: pytest rc={rc} {'caught' if caught else 'MISSED'} | {last}",
+                  flush=True)
+    print(f"{args.source}: {len(mutants) - len(missed)} of {len(mutants)} mutants caught"
+          + (f"; missed: {', '.join(missed)}" if missed else ""))
+    return 1 if missed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

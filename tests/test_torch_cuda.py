@@ -7,8 +7,10 @@ PyTorch; there tests/conftest.py (which imports jax) is left out:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 All equality is exact: this is an integer codec.  The shapes are small
-(64x64, 416x64 with nbx = 26, and 2048x32 with nbx = 128, the widest frame);
-chip_smoke.py covers 1920x1152.
+(64x64, 416x64 with nbx = 26, 1920x32 with nbx = 120, and 2048x32 with
+nbx = 128, the widest frame); chip_smoke.py covers 1920x1152.  The transform
+kernel's stages are also run alone on int32 tiles (transform_stage), to
+reach the wraps and clamps that pixels never reach.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 torch.set_num_threads(1)
 
 from fpga_mpeg2_encoder_tpu_torch import Encoder, EncoderConfig
+from fpga_mpeg2_encoder_tpu_torch.core import tables
 from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
@@ -78,6 +81,47 @@ def test_transform_kernel_equals_plain(dev, w, q_level, kind):
         got = _launched("transform", lambda: k_tf.transform_recon(*args, q_level))
         for g, want in zip(got, dct.transform_recon(*args, q_level)):
             assert g.dtype == want.dtype and torch.equal(g, want)
+
+
+def _stage_equal(dev, stage, x, inter=None, q_level=1):
+    """transform_stage on the card (the transform kernel's device code)
+    against ops/dct.py's stage on the same card."""
+    x = torch.as_tensor(x, dtype=torch.int32, device=dev)
+    if inter is not None:
+        inter = torch.as_tensor(inter, device=dev)
+    got = k_tf.transform_stage(stage, x, inter, q_level)
+    torch.cuda.synchronize()
+    want = k_tf.transform_stage(stage, x.cpu(), None if inter is None else inter.cpu(),
+                                q_level)
+    for g, w in zip(got if stage == "quantize" else (got,),
+                    want if stage == "quantize" else (want,)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("q_level", [1, 2, 3, 4])
+def test_transform_intra_quantiser_exhaustive(dev, q_level):
+    """The kernel's division-free intra quantiser against the plain
+    floor division: |f| chosen so that (|f| + off) & 0xFFFF sweeps every
+    16-bit value at every position, so every numerator is reached."""
+    a = np.arange(65536, dtype=np.int64)[:, None]
+    wq = np.asarray(tables.INTRA_Q, np.int64).reshape(-1)
+    off = (wq * ((3 << q_level) + 2)) >> 3
+    f = ((a - off[None, :]) & 0xFFFF).reshape(-1, 8, 8)
+    for sign in (1, -1):
+        _stage_equal(dev, "quantize", sign * f, np.zeros(len(f), bool), q_level)
+
+
+@pytest.mark.parametrize("q_level", [1, 2, 3, 4])
+def test_transform_stages_equal_plain(dev, q_level):
+    """Each stage of the kernel on values that pixels never give: the FDCT's
+    17-bit wrap, the quantiser's 16-bit wraps and clamps, the dequantiser's
+    clamps, the IDCT's 18-bit truncation, its 32-bit wrap and its clamp."""
+    rng = np.random.default_rng(q_level)
+    _stage_equal(dev, "fdct", rng.integers(-4095, 4096, (4096, 8, 8)))
+    f = rng.integers(-70000, 70001, (4096, 8, 8))
+    _stage_equal(dev, "quantize", f, rng.random(4096) < 0.5, q_level)
+    iq = rng.choice(np.array([-2047, 2047, -2048, 0, 1 << 20, -(1 << 20)]), (2048, 8, 8))
+    _stage_equal(dev, "idct", np.concatenate([iq, rng.integers(-2047, 2048, (2048, 8, 8))]))
 
 
 @pytest.mark.parametrize("w", [64, 416])
@@ -223,6 +267,29 @@ def test_me_kernels_equal_plain(dev, w, h, vl, kind):
     _equal(got, motion.chroma_pred(*halos[1:], mixed, *fused[1:3], ur))
 
 
+@pytest.mark.parametrize("vl", [1, 3])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_me_kernels_range_end_1920_wide(dev, vl, sign):
+    """1920 wide (nbx = 120), noise moving yr pixels sideways: the exact
+    match lies at dx = +-yr, the first or last candidate of the window row's
+    byte alignment."""
+    yr, ur, w, h = 2 * vl, vl, 1920, 32
+    base = np.random.default_rng(vl).integers(0, 256, (h, w + 2 * yr)).astype(np.uint8)
+    prev, cur = base[:, yr:yr + w], base[:, yr + sign * yr:yr + sign * yr + w]
+    py = torch.as_tensor(np.ascontiguousarray(prev), device=dev)
+    pu, pv = py[::2, ::2].contiguous(), py[1::2, 1::2].contiguous()
+    cy = torch.as_tensor(np.ascontiguousarray(cur), device=dev)
+    halos = (motion.pad_halo(py, 8), motion.pad_halo(pu, 4), motion.pad_halo(pv, 4))
+    want = motion.estimate_and_predict_local(cy, *halos, False, yr, ur, 0, h // 16, True)
+    interior = want.mvx[:, 1:-1]
+    assert (interior == sign * 2 * yr).all() and want.inter[:, 1:-1].all()
+    _equal(_launched("me_fused", lambda: k_me.motion_estimate_fused(
+        cy, py, pu, pv, False, yr, ur, as_plane=True)), want)
+    luma = _launched("me_luma", lambda: k_me.motion_estimate(cy, py, False, yr, as_plane=True))
+    _equal(luma, want[:4])
+    _equal(k_me.chroma_pred(pu, pv, *luma[:3], ur, as_plane=True), want[4:])
+
+
 @pytest.mark.parametrize("form", ["fused", "split"])
 @pytest.mark.parametrize("backward", [False, True])
 def test_me_kernels_middle_band_equal_plain(dev, form, backward):
@@ -266,6 +333,17 @@ def test_wrappers_check_inputs(dev):
         k_me.motion_estimate(y, y.to(torch.int32), False, 6)
     with pytest.raises(ValueError, match="shape"):
         k_me.motion_estimate_fused(y, y, c, c, False, 6, 3, halo=True)
+    # the vector loads need 8-byte aligned planes
+    odd = torch.zeros(64 * 64 + 1, dtype=torch.uint8, device=dev)[1:].view(64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        k_me.motion_estimate_fused(odd, y, c, c, False, 6, 3)
+    with pytest.raises(ValueError, match="aligned"):
+        k_me.motion_estimate(y, odd, False, 6)
+    inter = torch.zeros((4, 4), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        k_tf.transform_recon(y, c, c, odd, c, c, inter, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        k_tf.transform_recon(y, c, c, y.to(torch.int32), c, c, inter, 2)
 
 
 @pytest.mark.parametrize("w,chunk,caps", [

@@ -99,9 +99,13 @@ def _content(kind, w, h, seed, yr):
 
 
 def _assert_equal(got, want):
+    """Values equal the JAX outputs (whose predictions are int32); the
+    port's predictions, the last three of six outputs, are uint8."""
     assert len(got) == len(want)
     for k, (g, w) in enumerate(zip(got, want)):
         assert np.array_equal(g.numpy(), np.asarray(w)), f"output {k}"
+    if len(got) == 6:
+        assert all(p.dtype == torch.uint8 for p in got[3:])
 
 
 def _t(*arrays):
@@ -217,3 +221,28 @@ def test_wrappers_match_jax_kernels_interpreted(interpret_me, form, halo):
     assert _build.LAUNCHES == before        # CPU tensors: the plain versions ran
     assert got[0].any()
     _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("as_plane", [False, True])
+@pytest.mark.parametrize("halo", [False, True])
+def test_predictions_are_uint8(halo, as_plane):
+    """Every motion function, plain and wrapper, returns uint8 predictions
+    whose values are the int32 computation's: the transform reads uint8."""
+    y0, u0, v0, y1 = _planes(64, 64, 3)
+    cur, py, pu, pv = _t(y1, y0, u0, v0)
+    if halo:
+        py, pu, pv = motion.pad_halo(py, 8), motion.pad_halo(pu, 4), motion.pad_halo(pv, 4)
+    kw = dict(halo=halo, as_plane=as_plane)
+    for is_i in (False, True):
+        fused = k_me.motion_estimate_fused(cur, py, pu, pv, is_i, 6, 3, **kw)
+        luma = k_me.motion_estimate(cur, py, is_i, 6, **kw)
+        chroma = k_me.chroma_pred(pu, pv, *luma[:3], 3, **kw)
+        hy, hu, hv = (py, pu, pv) if halo else (motion.pad_halo(py, 8),
+                                                 motion.pad_halo(pu, 4),
+                                                 motion.pad_halo(pv, 4))
+        plain = motion.estimate_and_predict_local(cur, hy, hu, hv, is_i, 6, 3, 0, 4, as_plane)
+        for preds in (fused[3:], (luma[3],) + chroma, plain[3:]):
+            assert all(p.dtype == torch.uint8 for p in preds)
+        for a, b in zip(fused, plain):
+            assert torch.equal(a, b)
+        assert is_i or plain.inter.any()

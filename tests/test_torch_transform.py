@@ -2,6 +2,9 @@
 kernel) against the JAX package: the fused Pallas kernel in interpret mode,
 the XLA coefficient-major path, and the golden per-tile model.  All equality
 is exact: this is an integer codec."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,7 @@ from fpga_mpeg2_encoder_tpu.models import encoder as M
 from fpga_mpeg2_encoder_tpu.ops import dct as jdct
 from fpga_mpeg2_encoder_tpu.ops import entropy as jentropy
 from fpga_mpeg2_encoder_tpu.ops.pallas import transform as k_tf
+from fpga_mpeg2_encoder_tpu_torch.core import tables as port_tables
 from fpga_mpeg2_encoder_tpu_torch.ops import dct
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as port_kernel
@@ -39,7 +43,8 @@ def _inputs(seed, w=96, h=64):
 
 
 def _port(cur, pred, inter, q_level):
-    out = dct.transform_recon(*(torch.from_numpy(p) for p in cur + pred),
+    """The port takes the predictions as uint8 (the JAX package as int32)."""
+    out = dct.transform_recon(*(torch.from_numpy(p.astype(np.uint8)) for p in cur + pred),
                               torch.from_numpy(inter), q_level)
     return [o.numpy() for o in out]
 
@@ -131,7 +136,74 @@ def test_wrapper_runs_plain_version_on_cpu():
     cur, pred, inter = _inputs(3)
     before = dict(_build.LAUNCHES)
     got = port_kernel.transform_recon(
-        *(torch.from_numpy(p) for p in cur + pred), torch.from_numpy(inter), 2)
+        *(torch.from_numpy(p.astype(np.uint8)) for p in cur + pred),
+        torch.from_numpy(inter), 2)
     assert _build.LAUNCHES == before
     for g, w in zip(got, _port(cur, pred, inter, 2)):
         assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("q_level", [1, 3])
+def test_pred_above_cur_matches_pallas_interpret(interpret_transform, q_level):
+    """pred > cur everywhere: every residual is negative, which a uint8
+    cur - pred would wrap."""
+    rng = np.random.default_rng(20 + q_level)
+    w, h = 64, 32
+    cur = [rng.integers(0, 128, s).astype(np.uint8)
+           for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    pred = [rng.integers(128, 256, p.shape).astype(np.int32) for p in cur]
+    inter = rng.random((h // 16, w // 16)) < 0.5
+    got = _port(cur, pred, inter, q_level)
+    want_k = k_tf.transform_recon_pallas(
+        *(jnp.asarray(p) for p in cur + pred), jnp.asarray(inter), q_level)
+    want_x = _xla(cur, pred, inter, q_level)
+    assert (got[0] < 0).any()
+    for g, k, x in zip(got, want_k, want_x):
+        assert np.array_equal(g, np.asarray(k))
+        assert np.array_equal(g, x)
+
+
+def _cu_table(name):
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "fpga_mpeg2_encoder_tpu_torch", "csrc", "transform.cu")
+    m = re.search(name + r"\[64\]\s*=\s*\{([^}]*)\}", open(path).read())
+    assert m, name
+    return np.array([int(x.strip().rstrip("u")) for x in m.group(1).split(",") if x.strip()],
+                    np.uint64)
+
+
+@pytest.mark.parametrize("q_level", [0, 1, 2, 3, 4])
+def test_intra_reciprocal_exhaustive(q_level):
+    """The transform kernel's division-free intra quantiser: its magic
+    reciprocals (transform.cu's literals, which must be core/tables.py's)
+    against // for every numerator ((a + off) & 0xFFFF) >> q_level that a
+    16-bit |f| gives, at each of the 64 positions.  q_level 0 is the whole
+    16-bit numerator range."""
+    magic, shift = (t.astype(np.uint64) for t in port_tables.intra_reciprocal())
+    assert np.array_equal(_cu_table("c_intra_magic"), magic)
+    assert np.array_equal(_cu_table("c_intra_shift"), shift)
+    wq = T.INTRA_Q.reshape(-1).astype(np.uint64)
+    off = (wq * np.uint64((3 << q_level) + 2)) >> np.uint64(3)
+    a = np.arange(65536, dtype=np.uint64)[:, None]
+    n = ((a + off[None, :]) & np.uint64(0xFFFF)) >> np.uint64(q_level)
+    got = ((n * magic[None, :]) >> np.uint64(32)) >> shift[None, :]
+    assert np.array_equal(got, n // wq[None, :])
+
+
+@pytest.mark.parametrize("stage", ["fdct", "quantize", "idct"])
+def test_stage_wrapper_runs_plain_version_on_cpu(stage):
+    """transform_stage on CPU tensors: ops/dct.py's stage, as int32."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(-2047, 2048, (16, 8, 8)).astype(np.int32))
+    inter = torch.from_numpy(rng.random(16) < 0.5)
+    before = dict(_build.LAUNCHES)
+    got = port_kernel.transform_stage(stage, x, inter, 2)
+    assert _build.LAUNCHES == before
+    if stage == "quantize":
+        q = dct.quantize(x.to(torch.int64), inter, 2)
+        want = (q, dct.dequantize(q, inter, 2))
+    else:
+        want = ((dct.fdct if stage == "fdct" else dct.idct)(x),)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g.to(torch.int64), w.to(torch.int64))
