@@ -51,8 +51,8 @@ INT32_LANES_PER_SM = 64        # Hopper SM: 64 INT32 lanes per clock
 # instructions issued beside it: the full INT32 rate, so the ME's bound uses
 # the INT32 peak.
 SAD_PER_OP = 4
-WORD_BYTES = 4                 # slots (code | len << 27) and packed words are 32-bit
-                               # values, carried as int64 for the CPU's plain code
+WORD_BYTES = 4                 # packed words are 32-bit values, carried as int64 for
+                               # the CPU's plain code; the bounds of P, S and M count 4 bytes
 MAIN_PATH = ("me_fused", "transform", "acsym", "pack_slots", "merge_rows")
 OFF_PATH = ("me_luma", "chroma_pred", "pack_symbols")
 REPLACES = {
@@ -70,7 +70,7 @@ SOURCES = {k: f"fpga_mpeg2_encoder_tpu_torch/csrc/{f}" for k, f in (
     ("merge_rows", "pack.cu"), ("me_fused", "me.cu"), ("me_luma", "me.cu"),
     ("chroma_pred", "me.cu"))}
 SOURCES["pack_symbols"] = "fpga_mpeg2_encoder_tpu_torch/ops/kernels/pack.py"
-REDESIGNED = {"me_fused": "PR 3", "transform": "PR 3"}
+REDESIGNED = {"me_fused": "PR 3", "transform": "PR 3", "acsym": "PR 4", "pack_slots": "PR 4"}
 KERNEL_SYMBOLS = {"transform": "transform_kernel", "acsym": "acsym_kernel",
                   "pack_slots": "pack_slots_kernel", "merge_rows": "merge_rows_kernel",
                   "me_fused": "me_fused_kernel", "me_luma": "me_luma_kernel",
@@ -269,23 +269,28 @@ def main():
         qzig, *_ = k_tf.transform_recon(y1, u1, v1, mr_p.pred_y, mr_p.pred_u,
                                         mr_p.pred_v, mr_p.inter, cfg.q_level)
         ac_args = entropy.ac_inputs(qzig, mr_p.inter, mr_p.mvx, mr_p.mvy, 1, cfg.q_level)
+        # acsym reads zmod and only the non-AC slots of small (16 a
+        # macroblock, 3 a slice header) and writes the whole grid
+        small = ac_args[1]
+        ac_read = nbytes(ac_args[0]) + (16 * n_mb + 3 * nby) * small.element_size()
         checks.append(("", "acsym", lambda: k_acsym.ac_slot_grid(*ac_args),
                        lambda: entropy.ac_slot_grid(*ac_args),
-                       (nbytes(ac_args[0]) + 2 * WORD_BYTES * ac_args[1].numel(), 0)))
+                       (ac_read + nbytes(small), 0)))
         slots = entropy.symbolize_frame(qzig, mr_p.inter, mr_p.mvx, mr_p.mvy, 1, 1,
                                         cfg.q_level)
-        codes, lens = slots & entropy.SLOT_CODE_MASK, slots >> entropy.SLOT_LEN_SHIFT
+        codes, lens = slots & entropy.SLOT_CODE_MASK, entropy.slot_len(slots)
         rw, rb, _ = k_pack.pack_slots(slots, CAPS["row_cap"])
         for cap, tag in ((CAPS["row_cap"], ""), (16, " overflow")):
+            # the words and bits of each row, 32-bit values (carried as int64)
             out_bytes = rw.shape[0] * (cap + 1) * WORD_BYTES
             checks.append((f"cap {cap}{tag}", "pack_slots",
                            lambda c=cap: k_pack.pack_slots(slots, c),
                            lambda c=cap: bitpack.pack_slots(slots, c),
-                           (slots.numel() * WORD_BYTES + out_bytes, 0)))
+                           (nbytes(slots) + out_bytes, 0)))
             checks.append((f"cap {cap}{tag}", "pack_symbols",
                            lambda c=cap: k_pack.pack_symbols(codes, lens, c),
                            lambda c=cap: bitpack.pack_symbols(codes, lens, c),
-                           (2 * slots.numel() * WORD_BYTES + out_bytes, 0)))
+                           (nbytes(codes, lens) + out_bytes, 0)))
         needed = (int(((rb + 31) // 32).sum()) + rb.numel()) * WORD_BYTES
         for cap, tag in ((CAPS["frame_cap"], ""), (64, " overflow")):
             checks.append((f"cap {cap}{tag}", "merge_rows",

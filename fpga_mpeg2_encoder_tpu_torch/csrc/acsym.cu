@@ -6,18 +6,24 @@
 // Replaces ops/pallas/acsym.py::ac_slot_grid_pallas of the JAX package.
 // Plain version: ops/entropy.py::ac_slot_grid.
 //
-// One block per macroblock, one thread per coefficient (6 tiles x 64 = 384
-// threads, each tile two whole warps).  The kernel streams 1.5 KB of
-// coefficients and 128 B of non-AC slots in and 3.2 KB of slots out per
-// macroblock with a handful of integer operations per coefficient, so it is
-// bound by device memory traffic.  The TPU kernel's routing barrel and
-// one-hot table matmuls are not needed here: the run length is the warp
-// prefix-max of the emit positions
-// (a ballot of the emitting lanes, then the highest set bit below the lane),
-// the B.14 entry is one constant-memory load, and each AC slot index is
-// computed directly, so every slot is written exactly once.
+// Bound by device memory traffic: per macroblock 1.5 KB of coefficients and
+// 64 B of non-AC slots in, 1.6 KB of slots out, with a handful of integer
+// operations per coefficient.  The design keeps many bytes in flight and
+// writes whole lines:
+// * 4 macroblocks a block, 16 threads a tile, 4 coefficients a thread in one
+//   16-byte load, so a warp reads 512 contiguous bytes;
+// * a tile's 64-bit emit mask is the OR of its 16 threads' 4-bit nibbles
+//   (two 32-bit halves, each a warp reduction); a coefficient's run is its
+//   distance to the highest emit below it;
+// * the B.14 entries are staged in shared memory (the lookups diverge);
+// * the block's slots (its macroblocks, and the 3 slice-header slots of a
+//   row that starts in it) form one contiguous span of the grid: staged in
+//   shared memory, then written in aligned 16-byte stores, with 4-byte
+//   stores at the unaligned head and tail.
+// The TPU kernel's routing barrel and one-hot table matmuls are not needed:
+// each AC slot index is computed directly, so every slot is written once.
 //
-// Slots are int64 holding the uint32 code | len << 27; zero coefficients get
+// Slots are int32 holding the uint32 code | len << 27; zero coefficients get
 // a zero slot.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -25,7 +31,7 @@
 namespace {
 
 // ops/entropy.py AC_TABLE: compact B.14 key -> valid<<22 | code<<6 | len
-__constant__ uint32_t c_ac_table[144] = {
+__device__ const uint32_t c_ac_table[144] = {
     4194498, 4194564, 4194629, 4194695, 4196744, 4196424,
     4194954, 4196172, 4194499, 4194694, 4196680, 4195082,
     4196044, 4195725, 4195661, 4196303, 4194628, 4194567,
@@ -53,6 +59,11 @@ __constant__ uint32_t c_ac_table[144] = {
 
 constexpr int SLOTS_PER_MB = 4 + 6 * 65;
 constexpr int HDR_SLOTS = 3;
+constexpr int MBB = 4;                        // macroblocks per block
+constexpr int THREADS = MBB * 96;             // 6 tiles x 16 threads each
+// the staged span: MBB macroblocks, a slice header before each (nbx = 1),
+// and up to 3 words in front of the span's first slot to align it
+constexpr int SPAN_WORDS = MBB * (SLOTS_PER_MB + HDR_SLOTS) + 4;
 
 // ops/entropy.py::_ac_key
 __device__ __forceinline__ int ac_key(int run, int am1) {
@@ -64,58 +75,103 @@ __device__ __forceinline__ int ac_key(int run, int am1) {
   return 143;
 }
 
-__global__ void __launch_bounds__(384) acsym_kernel(
-    const int32_t* __restrict__ zmod, const int64_t* __restrict__ small,
-    int64_t* __restrict__ out, int nbx) {
-  __shared__ uint32_t emit[6][2];
-  const int by = blockIdx.x / nbx, bx = blockIdx.x - by * nbx;
-  const int t = threadIdx.x >> 6, p = threadIdx.x & 63;
-  const long long s = HDR_SLOTS + (long long)SLOTS_PER_MB * nbx;
-  const int64_t* in_row = small + by * s;
-  int64_t* out_row = out + by * s;
-  const long long mb0 = HDR_SLOTS + (long long)SLOTS_PER_MB * bx;
-
-  // non-AC slots of this macroblock (type, mv, cbp, DC, EOB) and, once per
-  // row, the slice header
-  for (int i = threadIdx.x; i < SLOTS_PER_MB; i += blockDim.x) {
-    const int k = (i - 4) % 65;
-    if (i < 4 || k == 0 || k == 64) out_row[mb0 + i] = in_row[mb0 + i];
+// The slot of nonzero coefficient z at zig-zag position p of a tile whose
+// emit mask is `mask`; 0 for z == 0.
+__device__ __forceinline__ uint32_t ac_slot(int z, int p, uint64_t mask,
+                                            const uint32_t* tab) {
+  if (z == 0) return 0;
+  const uint64_t below = mask & ((1ull << p) - 1);
+  const int prev = below ? 63 - __clzll((long long)below) : -1;
+  const int run = p - prev - 1;
+  const int am1 = (z < 0 ? -z : z) - 1;
+  const uint32_t e = tab[ac_key(run, am1)];
+  uint32_t code, len;
+  if (e >= (1u << 22)) {
+    code = (((e >> 6) & 0xFFFFu) << 1) | (z < 0 ? 1u : 0u);
+    len = (e & 63u) + 1u;
+  } else {                                    // 24-bit escape (RTL:2541-2543)
+    code = (1u << 18) | ((uint32_t)run << 12) | ((uint32_t)z & 0xFFFu);
+    len = 24u;
   }
-  if (bx == 0 && threadIdx.x < HDR_SLOTS) out_row[threadIdx.x] = in_row[threadIdx.x];
+  return code | (len << 27);
+}
 
-  // position 0 carries the emit flag, which only feeds the run lengths
-  const int z = zmod[((long long)by * nbx + bx) * 384 + threadIdx.x];
-  const uint32_t m = __ballot_sync(0xffffffffu, z != 0);
-  if ((threadIdx.x & 31) == 0) emit[t][(threadIdx.x >> 5) & 1] = m;
-  __syncthreads();
-  if (p == 0) return;
+// Flat grid index of macroblock mb's first slot: the slice headers of rows
+// 0..by and the slots of macroblocks 0..mb-1 come before it.
+__device__ __forceinline__ int mb_first_slot(int mb, int nbx) {
+  return HDR_SLOTS * (mb / nbx + 1) + SLOTS_PER_MB * mb;
+}
 
-  uint64_t slot = 0;
-  if (z != 0) {
-    const uint64_t mask = ((uint64_t)emit[t][1] << 32) | emit[t][0];
-    const uint64_t below = mask & ((1ull << p) - 1);
-    const int prev = below ? 63 - __clzll((long long)below) : -1;
-    const int run = p - prev - 1;
-    const int am1 = (z < 0 ? -z : z) - 1;
-    const uint32_t e = c_ac_table[ac_key(run, am1)];
-    uint32_t code, len;
-    if (e >= (1u << 22)) {
-      code = (((e >> 6) & 0xFFFFu) << 1) | (z < 0 ? 1u : 0u);
-      len = (e & 63u) + 1u;
-    } else {                                  // 24-bit escape (RTL:2541-2543)
-      code = (1u << 18) | ((uint32_t)run << 12) | ((uint32_t)z & 0xFFFu);
-      len = 24u;
+__global__ void __launch_bounds__(THREADS) acsym_kernel(
+    const int32_t* __restrict__ zmod, const uint32_t* __restrict__ small,
+    uint32_t* __restrict__ out, int nbx, int n_mb) {
+  __shared__ uint32_t tab[144];
+  __shared__ __align__(16) uint32_t stage[SPAN_WORDS];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int mb0 = blockIdx.x * MBB, nmb = min(MBB, n_mb - mb0);
+  // the block's span of the grid: [first, end), staged at stage[i - base]
+  const int first = mb_first_slot(mb0, nbx) - (mb0 % nbx == 0 ? HDR_SLOTS : 0);
+  const int end = mb_first_slot(mb0 + nmb - 1, nbx) + SLOTS_PER_MB;
+  const int base = first & ~3;
+  for (int i = tid; i < 144; i += THREADS) tab[i] = c_ac_table[i];
+
+  // thread (macroblock mbl, tile t, quad q) holds positions 4q..4q+3
+  const int mbl = tid / 96, w = tid - mbl * 96, t = w >> 4, q = w & 15;
+  const int mb = mb0 + mbl;
+  const bool valid = mbl < nmb;
+  int4 z4 = make_int4(0, 0, 0, 0);
+  if (valid) z4 = *reinterpret_cast<const int4*>(zmod + (long long)mb * 384 + t * 64 + 4 * q);
+  const int z[4] = {z4.x, z4.y, z4.z, z4.w};
+
+  // The tile's emit mask.  Position 0 carries the emit flag, which only
+  // feeds the runs.  A warp holds two tiles; lanes 0-7 hold positions 0-31
+  // of the first, 8-15 its 32-63, 16-23 and 24-31 the same of the second.
+  const uint32_t nib = (z[0] != 0) | (z[1] != 0) << 1 | (z[2] != 0) << 2 | (z[3] != 0) << 3;
+  const uint32_t v = nib << ((lane & 7) * 4);
+  const int g = lane >> 3;
+  const uint32_t r0 = __reduce_or_sync(0xffffffffu, g == 0 ? v : 0u);
+  const uint32_t r1 = __reduce_or_sync(0xffffffffu, g == 1 ? v : 0u);
+  const uint32_t r2 = __reduce_or_sync(0xffffffffu, g == 2 ? v : 0u);
+  const uint32_t r3 = __reduce_or_sync(0xffffffffu, g == 3 ? v : 0u);
+  const uint32_t lo = lane < 16 ? r0 : r2, hi = lane < 16 ? r1 : r3;
+  const uint64_t mask = ((uint64_t)hi << 32) | lo;
+  __syncthreads();                            // tab
+
+  if (valid) {
+    const int mbs = mb_first_slot(mb, nbx) - base;
+    // non-AC slots of this macroblock: type, mv x, mv y, cbp, then each
+    // tile's DC and EOB; and, at bx = 0, the slice header
+    if (w < 16) {
+      const int i = w < 4 ? w : w < 10 ? 4 + 65 * (w - 4) : 4 + 65 * (w - 10) + 64;
+      stage[mbs + i] = small[base + mbs + i];
+    } else if (w < 16 + HDR_SLOTS && mb % nbx == 0) {
+      const int i = mbs - HDR_SLOTS + (w - 16);
+      stage[i] = small[base + i];
     }
-    slot = code | (len << 27);
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+      const int p = 4 * q + i;
+      if (p != 0) stage[mbs + 4 + 65 * t + p] = ac_slot(z[i], p, mask, tab);
+    }
   }
-  out_row[mb0 + 4 + 65 * t + p] = (int64_t)slot;
+  __syncthreads();
+
+  // the span out: 4-byte stores at the unaligned head and tail, 16-byte
+  // stores between (a span is at least 394 slots, so a0 <= a1)
+  const int a0 = (first + 3) & ~3, a1 = end & ~3;
+  if (tid < a0 - first) out[first + tid] = stage[first + tid - base];
+  if (tid < end - a1) out[a1 + tid] = stage[a1 + tid - base];
+  for (int j = a0 + 4 * tid; j < a1; j += 4 * THREADS)
+    *reinterpret_cast<uint4*>(out + j) = *reinterpret_cast<const uint4*>(stage + j - base);
 }
 
 }  // namespace
 
 extern "C" int mpeg2_acsym(const void* zmod, const void* small, void* out,
                            int nby, int nbx, void* stream) {
-  acsym_kernel<<<nby * nbx, 384, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)zmod, (const int64_t*)small, (int64_t*)out, nbx);
+  const int n_mb = nby * nbx;
+  if (n_mb == 0) return 0;
+  acsym_kernel<<<(n_mb + MBB - 1) / MBB, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)zmod, (const uint32_t*)small, (uint32_t*)out, nbx, n_mb);
   return (int)cudaGetLastError();
 }

@@ -8,97 +8,222 @@
 //   Replaces ops/pallas/pack.py::merge_rows_pallas; plain version
 //   ops/bitpack.py::merge_rows.
 //
-// Both read little (8 bytes per slot, 28 MB a 1920x1152 frame, about 8 us of
-// device memory time) and are bound by the serial dependence of every bit
-// offset on all earlier lengths; pack_slots' one block per row also leaves
-// SMs idle when a frame has fewer rows than the card has SMs (74 of 132 at
-// 1920x1152).  The TPU's bit-reversed merge tree existed because Mosaic has no
-// scatter; here the offsets come from one prefix sum and each symbol goes
-// straight to its word:
-// * pack_slots: one block per row.  Each thread sums the lengths of a
-//   contiguous run of slots, a block scan turns those sums into bit offsets,
-//   and each thread then walks its run again, OR-ing codes into a register
-//   word that it flushes with atomicOr when it moves on (only words shared
-//   with a neighbouring thread's run ever see two writers).
-// * merge_rows: one thread per input word; the row's start is the sum of the
+// pack_slots is bound by reading the slots (4 bytes each, 14 MB a 1920x1152
+// frame, where a slot averages under half a bit) and writing the words.
+// Every bit offset depends on all earlier lengths of its row; the TPU's
+// bit-reversed merge tree existed because Mosaic has no scatter.  Here:
+// * a row is cut into tiles of TILE slots, one block each, aligned to 16
+//   bytes in the flattened grid; a thread reads its SPT contiguous slots in
+//   SPT / 4 16-byte loads, all in flight at once, and holds them in
+//   registers, so the slots are read once; a 1920x1152 frame gives 888
+//   blocks, every SM busy;
+// * a block scan gives each thread its bit offset in the tile, and the
+//   tile's bit-string is formed in shared memory (shared atomicOr: symbols
+//   of neighbouring threads may share a word);
+// * the tile's offset in its row comes from a single-pass chained scan
+//   (decoupled look-back).  Tiles take their index from an atomic ticket, so
+//   a tile only waits on tiles that are already running.  Each tile
+//   publishes, in one 64-bit status word, first its length and its last 32
+//   bits (its aggregate), then its inclusive prefix and the row's last 32
+//   bits up to its end (its carry).  Warp 0 reads 32 predecessors' words at
+//   once; the nearest inclusive prefix ends the walk, and a shuffle scan
+//   adds the lengths and merges the tails into the 32 bits before the tile;
+// * each output word is written once, with a plain store, by the tile in
+//   which its last bit lies (the row's last tile also writes the final
+//   partial word and the zeros up to cap).  A tile's first word begins with
+//   bits of earlier tiles: the look-back's window of the 32 bits before the
+//   tile supplies them, so no word needs zeroing first and no global atomic;
+// * the last block to finish zeroes the status words and the counter, so
+//   the next call on the buffer starts clean (also under graph replay).  It
+//   clears each status word only after it has read that word's inclusive
+//   publish, so no publish of the call can land after the clear and leak
+//   into the next call (see the kernel's end).
+// merge_rows: one thread per input word; the row's start is the sum of the
 //   earlier rows' bit counts, and the word lands in one or two output words
 //   with a funnel shift.  Rows are byte- not word-aligned, so neighbouring
-//   rows meet inside shared boundary words: atomicOr again.
+//   rows meet inside shared boundary words: atomicOr into a zeroed payload.
 //
-// Words are int64 holding uint32 values; every code is masked to its length,
-// so a zero-length slot emits nothing whatever code it carries.
+// Slots are int32 holding uint32 code | len << 27 (len <= 31); every code is
+// masked to its length, so a zero-length slot emits nothing whatever code it
+// carries.  Words are int64 holding uint32 values.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int PACK_THREADS = 1024;
+constexpr int PACK_THREADS = 512;
+constexpr int SPT = 8;                                 // slots per thread, a multiple of 4
+constexpr int TILE = SPT * PACK_THREADS;               // slots per tile
+constexpr int TILE_WORDS = (TILE * 31 + 31) / 32 + 3;  // its longest string, and 2 zero words
+constexpr uint32_t ST_AGG = 1, ST_INCL = 2;            // status states
 
-__device__ __forceinline__ void flush(unsigned long long* row, long long w,
-                                      uint32_t acc, int cap) {
-  if (acc && w >= 0 && w < cap) atomicOr(row + w, (unsigned long long)acc);
+// Look-back state, in one zeroed buffer per stream: one 64-bit counter,
+// the tickets taken in its low half and the blocks done in its high half,
+// then one status word per tile: bits or carry << 32 | value << 2 | state,
+// 0 while unpublished.
+struct LookBack {
+  unsigned long long* ctl;
+  unsigned long long* status;
+};
+
+__device__ __forceinline__ unsigned long long status_word(uint32_t state, uint32_t value,
+                                                          uint32_t bits32) {
+  return (unsigned long long)bits32 << 32 | value << 2 | state;
 }
 
 __global__ void __launch_bounds__(PACK_THREADS) pack_slots_kernel(
-    const int64_t* __restrict__ slots, int64_t* __restrict__ words,
-    int64_t* __restrict__ bits, int s, int cap) {
-  __shared__ long long warp_sums[PACK_THREADS / 32];
-  const int row = blockIdx.x;
-  const int64_t* in = slots + (long long)row * s;
-  unsigned long long* out = (unsigned long long*)(words + (long long)row * cap);
-  for (int i = threadIdx.x; i < cap; i += PACK_THREADS) out[i] = 0;
+    const uint32_t* __restrict__ slots, int64_t* __restrict__ words,
+    int64_t* __restrict__ bits, LookBack lb, int s, int cap, int tiles_per_row,
+    int n_tiles, int n_slots) {
+  __shared__ uint32_t str[TILE_WORDS];
+  __shared__ int warp_sums[PACK_THREADS / 32];
+  __shared__ int s_ticket, s_off, s_last;
+  __shared__ uint32_t s_win;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  volatile unsigned long long* st = lb.status;
+  if (tid == 0) s_ticket = (int)(uint32_t)atomicAdd(lb.ctl, 1ull);
+  __syncthreads();
+  const int ticket = s_ticket;
+  const int row = ticket / tiles_per_row, k = ticket - row * tiles_per_row;
+  const int r0 = row * s, r1 = r0 + s;      // the row's slots in the flattened grid
 
-  const int per = (s + PACK_THREADS - 1) / PACK_THREADS;
-  const int s0 = min(s, (int)threadIdx.x * per), s1 = min(s, s0 + per);
-  long long own = 0;
-  for (int i = s0; i < s1; i++) own += (uint32_t)in[i] >> 27;
+  // this thread's SPT slots; those outside the row read as empty
+  const int a = (r0 & ~3) + k * TILE + SPT * tid;
+  uint32_t sl[SPT];
+#pragma unroll
+  for (int q = 0; q < SPT; q += 4) {
+    if (a + q + 4 <= n_slots) {
+      const uint4 v = *reinterpret_cast<const uint4*>(slots + a + q);
+      sl[q] = v.x; sl[q + 1] = v.y; sl[q + 2] = v.z; sl[q + 3] = v.w;
+    } else {
+      for (int i = q; i < q + 4; i++) sl[i] = a + i < n_slots ? slots[a + i] : 0u;
+    }
+  }
+  int own = 0;
+#pragma unroll
+  for (int i = 0; i < SPT; i++) {
+    if (a + i < r0 || a + i >= r1) sl[i] = 0;
+    own += (int)(sl[i] >> 27);
+  }
 
   // block-wide exclusive scan of the per-thread length sums
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  long long x = own;
+  int x = own;
   for (int d = 1; d < 32; d <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, x, d);
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
     if (lane >= d) x += y;
   }
   if (lane == 31) warp_sums[wid] = x;
-  __syncthreads();                          // also orders the zeroing above
+  __syncthreads();
   if (wid == 0) {
-    long long y = warp_sums[lane];
+    int y = lane < PACK_THREADS / 32 ? warp_sums[lane] : 0;
     for (int d = 1; d < 32; d <<= 1) {
-      const long long z = __shfl_up_sync(0xffffffffu, y, d);
+      const int z = __shfl_up_sync(0xffffffffu, y, d);
       if (lane >= d) y += z;
     }
-    warp_sums[lane] = y;
+    if (lane < PACK_THREADS / 32) warp_sums[lane] = y;
   }
   __syncthreads();
-  long long off = x - own + (wid > 0 ? warp_sums[wid - 1] : 0);
+  int o = x - own + (wid > 0 ? warp_sums[wid - 1] : 0);
+  const int total = warp_sums[PACK_THREADS / 32 - 1];    // the tile's bits
 
-  long long cw = -1;
-  uint32_t acc = 0;
-  for (int i = s0; i < s1; i++) {
-    const uint32_t slot = (uint32_t)in[i];
-    const int len = slot >> 27;
-    if (len == 0) continue;
-    const uint32_t code = slot & ((1u << 27) - 1) & ((1u << len) - 1);
-    const long long wi = off >> 5;
-    const int end = (int)(off & 31) + len;
-    if (wi != cw) {
-      flush(out, cw, acc, cap);
-      cw = wi;
-      acc = 0;
+  // the tile's bit-string, from bit 0 of str, zero past its end
+  for (int i = tid; i < (total + 31) / 32 + 2; i += PACK_THREADS) str[i] = 0;
+  __syncthreads();
+  if (own) {
+#pragma unroll
+    for (int i = 0; i < SPT; i++) {
+      const int n = (int)(sl[i] >> 27);
+      if (n == 0) continue;
+      const uint32_t code = sl[i] & ((1u << 27) - 1) & ((1u << n) - 1);
+      const int wi = o >> 5, e = (o & 31) + n;
+      if (e <= 32) {
+        atomicOr(&str[wi], code << (32 - e));
+      } else {                                // straddles two words
+        atomicOr(&str[wi], code >> (e - 32));
+        atomicOr(&str[wi + 1], code << (64 - e));
+      }
+      o += n;
     }
-    if (end <= 32) {
-      acc |= code << (32 - end);
-    } else {
-      acc |= code >> (end - 32);
-      flush(out, cw, acc, cap);
-      cw = wi + 1;
-      acc = code << (64 - end);
-    }
-    off += len;
   }
-  flush(out, cw, acc, cap);
-  if (threadIdx.x == PACK_THREADS - 1) bits[row] = (off + 7) & ~7LL;
+  __syncthreads();
+
+  if (wid == 0) {
+    // the tile's last min(total, 32) bits, right-justified
+    uint32_t tail = 0;
+    if (total >= 32) {
+      const int b = total - 32;
+      tail = __funnelshift_lc(str[(b >> 5) + 1], str[b >> 5], b & 31);
+    } else if (total > 0) {
+      tail = str[0] >> (32 - total);
+    }
+    uint32_t off = 0, win = 0;                // the row's bits before the tile: count, last 32
+    if (k > 0) {
+      if (lane == 0) st[ticket] = status_word(ST_AGG, total, tail);
+      // predecessors ticket-1-lane, 32 at a time; before the row's first
+      // tile reads as an inclusive prefix of 0 bits
+      uint32_t have = 0;                      // bits of the window known so far
+      for (int j = ticket - 1 - lane;; j -= 32) {
+        unsigned long long sj;
+        do {
+          sj = j >= ticket - k ? st[j] : ST_INCL;
+        } while (!__all_sync(0xffffffffu, (sj & 3) != 0));
+        const unsigned incl = __ballot_sync(0xffffffffu, (sj & 3) == ST_INCL);
+        const int stop = incl ? __ffs(incl) - 1 : 31;
+        const uint32_t val = lane <= stop ? (uint32_t)sj >> 2 : 0u;
+        uint32_t sum = val;                   // lengths of this lane and nearer ones
+        for (int d = 1; d < 32; d <<= 1) {
+          const uint32_t y = __shfl_up_sync(0xffffffffu, sum, d);
+          if (lane >= d) sum += y;
+        }
+        const uint32_t at = have + sum - val; // where this tile's bits sit in the window
+        win |= __reduce_or_sync(0xffffffffu, lane <= stop && at < 32
+                                ? (uint32_t)((sj >> 32) << at) : 0u);
+        const uint32_t walked = __shfl_sync(0xffffffffu, sum, 31);
+        off += walked;
+        if (incl) break;
+        have = min(32u, have + walked);
+      }
+    }
+    if (lane == 0) {
+      const uint32_t carry = total >= 32 ? tail
+                                         : (uint32_t)(((unsigned long long)win << total) | tail);
+      st[ticket] = status_word(ST_INCL, off + (uint32_t)total, carry);
+      s_off = (int)off;
+      s_win = win;
+      s_last = atomicAdd(lb.ctl, 1ull << 32) >> 32 == (unsigned)n_tiles - 1;
+    }
+  }
+  __syncthreads();
+
+  // words whose last bit lies in this tile; the row's last tile also
+  // writes the final partial word and the zeros after it up to cap
+  const int off = s_off, end = off + total, pre = off & 31, w0 = off >> 5;
+  const bool last = k == tiles_per_row - 1;
+  const int w1 = min(cap, last ? (end + 31) >> 5 : end >> 5);
+  int64_t* out = words + (long long)row * cap;
+  for (int w = w0 + tid; w < w1; w += PACK_THREADS) {
+    const int j = w - w0;
+    out[w] = __funnelshift_lc(str[j], j ? str[j - 1] : s_win, 32 - pre);
+  }
+  if (last) {
+    for (int w = max(w1, 0) + tid; w < cap; w += PACK_THREADS) out[w] = 0;
+    if (tid == 0) bits[row] = ((long long)end + 7) & ~7LL;
+  }
+  // Every block has read all the status words it needs: the last one
+  // clears them and the counter for the next call.  No fence is needed: a
+  // thread stores 0 to a status word only after it has read that word's
+  // inclusive publish, the tile's last store to it, so by coherence on that
+  // one word the 0 lands after every publish to it.  Likewise the counter's
+  // reset follows, on the same word and in the same thread, the last
+  // block's add, which every other block's adds (tickets and counts)
+  // precede.
+  if (s_last) {
+    for (int i = tid; i < n_tiles; i += PACK_THREADS) {
+      while ((st[i] & 3) != ST_INCL) {}
+      st[i] = 0;
+    }
+    if (tid == 0) atomicExch(lb.ctl, 0ull);
+  }
 }
 
 __global__ void merge_rows_kernel(const int64_t* __restrict__ words,
@@ -128,10 +253,20 @@ __global__ void merge_rows_kernel(const int64_t* __restrict__ words,
 
 }  // namespace
 
+// scratch: the look-back buffer of 16 + 8 * capacity bytes, zeroed when
+// allocated and left zeroed by every call (ops/kernels/pack.py)
 extern "C" int mpeg2_pack_slots(const void* slots, void* words, void* bits,
-                                int r, int s, int cap, void* stream) {
-  pack_slots_kernel<<<r, PACK_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)slots, (int64_t*)words, (int64_t*)bits, s, cap);
+                                void* scratch, int r, int s, int cap, int capacity,
+                                void* stream) {
+  const int tiles_per_row = (s + 3 + TILE - 1) / TILE;
+  const int n_tiles = r * tiles_per_row;
+  if (n_tiles == 0) return 0;
+  if (n_tiles > capacity || (long long)r * s > (1LL << 31) - TILE)
+    return (int)cudaErrorInvalidValue;
+  const LookBack lb{(unsigned long long*)scratch, (unsigned long long*)scratch + 2};
+  pack_slots_kernel<<<n_tiles, PACK_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)slots, (int64_t*)words, (int64_t*)bits, lb, s, cap,
+      tiles_per_row, n_tiles, r * s);
   return (int)cudaGetLastError();
 }
 

@@ -47,7 +47,7 @@ def symbolize_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
                          i_frame: int, frame_no: int, *, yr: int, ur: int,
                          q_level: int):
     """The pipeline up to symbolisation: (recon_y, recon_u, recon_v, slots
-    (2 + nby, S) int64).  Also the overflow retry: its slot grid is packed on
+    (2 + nby, S) int32).  Also the overflow retry: its slot grid is packed on
     the host with no caps."""
     y, u, v = colorspace.subsample_420(y444, u444, v444)
     mr = k_me.estimate_and_predict_planes(y, u, v, prev_y, prev_u, prev_v,
@@ -73,12 +73,12 @@ def encode_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
     return recon_y, recon_u, recon_v, fwords, fbits, pack_ovf | (fbits > 32 * frame_cap)
 
 
-def stitch_slots_host(slots: np.ndarray) -> bytes:
-    """Pack a frame's (R, S) slot grid on the host (C++ stitcher): rows are
-    byte-aligned, exactly like the device merge, so the payload is
-    byte-identical to the device path."""
+def stitch_slots_host(slots: torch.Tensor) -> bytes:
+    """Pack a frame's (R, S) int32 slot grid, a CPU tensor, on the host (C++
+    stitcher): rows are byte-aligned, exactly like the device merge, so the
+    payload is byte-identical to the device path."""
     r, s = slots.shape
-    flat = slots.reshape(-1).astype(np.int64)
+    flat = entropy.slot_u32(slots.reshape(-1)).numpy()
     codes = (flat & entropy.SLOT_CODE_MASK).astype(np.uint32)
     lens = (flat >> entropy.SLOT_LEN_SHIFT).astype(np.int32)
     align = np.zeros(r * s, np.uint8)
@@ -331,7 +331,7 @@ class Encoder:
         retry path)."""
         ry, ru, rv, slots = symbolize_frame_core(
             *planes, *(prev or self._prev), self._i_frame, self._frame_no, **kw)
-        return ry, ru, rv, stitch_slots_host(slots.cpu().numpy())
+        return ry, ru, rv, stitch_slots_host(slots.cpu())
 
     def finish(self, stop_mode: str = "clean") -> bytes:
         """End the sequence (i_sequence_stop semantics) and return the stream.

@@ -4,10 +4,13 @@ pack_symbols, plus the per-frame sequence append.
 
 A bit-string is a row of 32-bit words, MSB first, left-justified and
 zero-filled beyond its length (so OR is concatenation), held as int64 values
-in [0, 2**32): torch on the CPU has no uint32 shifts.  Packing is the GPU
-idiom: an exclusive prefix sum of the symbol lengths gives every symbol its
-bit offset, and each symbol (<= 25 bits) lands in one or two words.  Symbols
-never share bits, so summing their word contributions equals OR-ing them.
+in [0, 2**32): torch on the CPU has no uint32 shifts.  Slots are int32
+holding the uint32 pattern ``code | len << 27``; they are read through
+entropy.slot_u32, widened and masked to 32 bits before any shift.  Packing
+is the GPU idiom: an exclusive prefix sum of the symbol lengths gives every
+symbol its bit offset, and each symbol (<= 25 bits) lands in one or two
+words.  Symbols never share bits, so summing their word contributions
+equals OR-ing them.
 Lengths are byte-aligned per row (the stage-V rule, RTL:2940-2943).
 """
 from __future__ import annotations
@@ -16,8 +19,9 @@ from typing import Tuple
 
 import torch
 
+from .entropy import SLOT_CODE_MASK, SLOT_LEN_SHIFT, slot_u32
+
 _MASK32 = 0xFFFFFFFF
-_LEN_SHIFT = 27              # entropy.SLOT_LEN_SHIFT: slot = code | len << 27
 
 
 def align_bytes(bits: torch.Tensor) -> torch.Tensor:
@@ -46,14 +50,15 @@ def _scatter_bits(rows: int, cap_words: int, val: torch.Tensor,
 
 def pack_slots(slots: torch.Tensor, cap_words: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the pack kernel.  slots (R, S) int64 ``code | len << 27``
-    -> (words (R, cap_words) int64, bits (R,) int64 byte-aligned, overflow ()
-    bool).  Each code is masked to its length, so a zero-length slot emits
-    nothing whatever code it carries.  Content past cap_words words is
-    dropped; overflow is set iff some row's bits exceed 32 * cap_words."""
-    slots = slots.to(torch.int64)
-    lens = slots >> _LEN_SHIFT
-    codes = slots & ((1 << _LEN_SHIFT) - 1) & ((torch.ones_like(lens) << lens) - 1)
+    """Plain version of the pack kernel.  slots (R, S) int32 ``code | len << 27``
+    (the uint32 pattern) -> (words (R, cap_words) int64, bits (R,) int64
+    byte-aligned, overflow () bool).  Each code is masked to its length, so
+    a zero-length slot emits nothing whatever code it carries.  Content past
+    cap_words words is dropped; overflow is set iff some row's bits exceed
+    32 * cap_words."""
+    slots = slot_u32(slots)
+    lens = slots >> SLOT_LEN_SHIFT
+    codes = slots & SLOT_CODE_MASK & ((torch.ones_like(lens) << lens) - 1)
     ends = lens.cumsum(dim=1)
     words = _scatter_bits(slots.shape[0], cap_words, codes, lens, ends - lens)
     bits = align_bytes(ends[:, -1])
@@ -61,8 +66,9 @@ def pack_slots(slots: torch.Tensor, cap_words: int
 
 
 def symbol_slots(codes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """(code, len) symbols -> int64 slots ``code | len << 27`` (entropy.pack_slot)."""
-    return codes.to(torch.int64) | (lens.to(torch.int64) << _LEN_SHIFT)
+    """(code, len) symbols -> int32 slots ``code | len << 27``, formed in int32:
+    its shift wraps to the uint32 pattern."""
+    return codes.to(torch.int32) | (lens.to(torch.int32) << SLOT_LEN_SHIFT)
 
 
 def pack_symbols(codes: torch.Tensor, lens: torch.Tensor, cap_words: int

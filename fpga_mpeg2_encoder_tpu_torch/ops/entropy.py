@@ -18,8 +18,10 @@ table is compacted through a 5-case perfect key in [0, 144); everything
 outside it is the 24-bit escape, computed arithmetically (RTL:2541-2543).
 
 Output is a slot grid - (2 + mb_rows) rows x S slots - with GOP/picture
-headers as the first two rows.  A slot is one int64 holding the uint32
-``code | len << 27``; a zero-length slot emits nothing, whatever its code.
+headers as the first two rows.  A slot is one int32 holding the bit pattern
+of the uint32 ``code | len << 27``, so a slot of length >= 16 is negative:
+read slots through `slot_len` and `slot_u32`.  A zero-length slot emits
+nothing, whatever its code.
 The AC slots are filled by ops/kernels/acsym.py (its plain version is
 `ac_slot_grid` below).
 """
@@ -113,8 +115,26 @@ def _ac_symbol(v: torch.Tensor, run: torch.Tensor) -> Tuple[torch.Tensor, torch.
 
 
 def pack_slot(code: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
-    """Pack (code <= 25 bits, len <= 24) into one slot."""
+    """Pack (code <= 25 bits, len <= 24) into one slot's uint32 pattern, as
+    int64.  Storing it into the int32 grid narrows it (wrapping) in the same
+    copy, so the grid costs no narrowing pass."""
     return code.to(torch.int64) | (length.to(torch.int64) << SLOT_LEN_SHIFT)
+
+
+def slot_u32(slots: torch.Tensor) -> torch.Tensor:
+    """The uint32 patterns of int32 slots, as int64: a slot of length >= 16
+    is negative as int32, so widen and mask before any shift."""
+    return slots.to(torch.int64) & 0xFFFFFFFF
+
+
+def slot_len(slots: torch.Tensor) -> torch.Tensor:
+    """The lengths of int32 slots, in their dtype."""
+    return (slots >> SLOT_LEN_SHIFT) & 31
+
+
+def _s32(v: int) -> int:
+    """The int32 whose bit pattern is the uint32 ``v``."""
+    return v - (1 << 32) if v >= 1 << 31 else v
 
 
 def _header_rows(i_frame: int, frame_no: int, s: int, device) -> torch.Tensor:
@@ -131,10 +151,10 @@ def _header_rows(i_frame: int, frame_no: int, s: int, device) -> torch.Tensor:
     pic_lens = [24, 18, 19, 11 if is_p else 3, 24, 24, 24]
     hdr = [[c | (n << SLOT_LEN_SHIFT) for c, n in zip(gop_codes, gop_lens)],
            [c | (n << SLOT_LEN_SHIFT) for c, n in zip(pic_codes, pic_lens)]]
-    rows = torch.zeros((2, s), dtype=torch.int64, device=device)
+    rows = torch.zeros((2, s), dtype=torch.int32, device=device)
     for r, vals in enumerate(hdr):
         for k, v in enumerate(vals):
-            rows[r, k] = v              # a fill on the device: no upload, no wait
+            rows[r, k] = _s32(v)        # a fill on the device: no upload, no wait
     return rows
 
 
@@ -144,8 +164,8 @@ def ac_slot_grid(zmod: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
 
     zmod: (nby, nbx*6*64) int zig-zag coefficients with position 0 replaced
     by the emit flag (intra or DC != 0), which only influences run lengths;
-    small: (nby, S) int64 packed non-AC slots (zero at AC slots).
-    Returns (nby, S) int64: ``small`` with AC slot 3 + 394*mb + 4 + 65*t + z
+    small: (nby, S) int32 packed non-AC slots (zero at AC slots).
+    Returns (nby, S) int32: ``small`` with AC slot 3 + 394*mb + 4 + 65*t + z
     set for z = 1..63 (zero where the coefficient is zero)."""
     nby, width = zmod.shape
     nbx = width // 384
@@ -173,7 +193,7 @@ def symbolize_frame(
     frame_no: int,            # frames since sequence start (timecode)
     q_level: int,
 ) -> torch.Tensor:
-    """-> (2 + nby, S) int64 slot grid, S = 3 + 394 * nbx."""
+    """-> (2 + nby, S) int32 slot grid, S = 3 + 394 * nbx."""
     # imported here: the kernel wrapper imports this module
     from .kernels.acsym import ac_slot_grid as ac_slot_grid_dispatch
 
@@ -249,16 +269,16 @@ def ac_inputs(quant_zig: torch.Tensor, inter: torch.Tensor, mvx: torch.Tensor,
     # A tile with nz=0 emits nothing: its AC coefficients are all zero and its
     # inter DC is 0, so only the EOB slot needs the explicit nz gate
     # (the RTL simply skips the tile, RTL:2823-2834).
-    tile_small = torch.zeros((nby, nbx, 6, 65), dtype=torch.int64, device=dev)
+    # Each store into the int32 grid narrows its slots in the same copy.
+    mb_small = torch.zeros((nby, nbx, SLOTS_PER_MB), dtype=torch.int32, device=dev)
+    mb_small[..., :4] = torch.stack(
+        [pack_slot(type_code, type_len), pack_slot(mvx_code, mvx_len),
+         pack_slot(mvy_code, mvy_len), pack_slot(cbp_code, cbp_len)], dim=-1)
+    tile_small = mb_small[..., 4:].view(nby, nbx, 6, 65)
     tile_small[..., 0] = pack_slot(dc_code, dc_len)
     tile_small[..., 64] = pack_slot(torch.full_like(dc, 0b10), 2 * nz.to(torch.int64))
-    mb_small = torch.cat([
-        torch.stack([pack_slot(type_code, type_len), pack_slot(mvx_code, mvx_len),
-                     pack_slot(mvy_code, mvy_len), pack_slot(cbp_code, cbp_len)],
-                    dim=-1),
-        tile_small.reshape(nby, nbx, 6 * 65)], dim=-1)
-    y16 = torch.arange(nby, device=dev)
-    hdr_p = torch.stack([torch.full_like(y16, 1 | 24 << SLOT_LEN_SHIFT),
+    y16 = torch.arange(nby, dtype=torch.int32, device=dev)
+    hdr_p = torch.stack([torch.full_like(y16, _s32(1 | 24 << SLOT_LEN_SHIFT)),
                          (y16 + 1) | 8 << SLOT_LEN_SHIFT,
                          torch.full_like(y16, (2 << q_level) | 6 << SLOT_LEN_SHIFT)],
                         dim=1)

@@ -4,13 +4,18 @@ pack_slots replaces ops/pallas/pack.py::pack_slots_pallas and merge_rows
 replaces ops/pallas/pack.py::merge_rows_pallas of the JAX package;
 pack_symbols replaces pack_symbols_pallas, which on the TPU as here forms the
 slots and calls the pack kernel, and launches nothing of its own.
-pack_slots and merge_rows move little data (at 1920x1152: 3.5 M slots into
-pack_slots, 14 MB as the 32-bit values they are, 28 MB as the int64 they are
-carried in) and are bound by the dependence of every bit offset on all
-earlier lengths.  One prefix sum gives each symbol (or row
-word) its offset, and it is OR-ed straight into one or two output words with
-atomics, in place of the TPU's bit-reversed merge tree.  pack_slots runs one
-block per row, so a frame of 74 slot rows fills 74 of the H100's 132 SMs.
+
+pack_slots is bound by reading the slots (at 1920x1152: 3.5 M int32 slots,
+14 MB) and writing the words.  Each row is cut into tiles of 4096 slots, one
+block of 512 threads each (888 blocks at 1920x1152): 8 slots a thread in
+two 16-byte loads held in registers, a block scan and the tile's bit-string
+in shared memory, and the tile's offset in its row from a single-pass
+chained scan (decoupled look-back), warp 0 reading 32 predecessors' status
+words at once.  Each output word is written
+once by a plain store.  The look-back's state lives in a buffer per device
+and stream, zeroed when it is allocated; the kernel's last block leaves it
+zeroed for the next call.  merge_rows OR-s each row word into one
+or two payload words with atomics, after one prefix sum of the row lengths.
 On CPU tensors the plain versions in ops/bitpack.py run instead.
 
 Unlike the JAX package there is no statistical level budget: a row overflows
@@ -20,26 +25,46 @@ backends.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from .. import bitpack
 from . import _build
 
+TILE = 4096                  # slots per pack_slots block (csrc/pack.cu TILE)
+
+# (device, stream) -> the look-back buffer of pack_slots as int64: the
+# counter and a spare word, then one status word per tile, `capacity` of them
+_lookback: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _lookback_buffer(device: torch.device, tiles: int) -> Tuple[torch.Tensor, int]:
+    """The look-back buffer for a call of ``tiles`` tiles on the current
+    stream of ``device``, and its capacity in tiles.  A new buffer is zeroed;
+    the kernel leaves it zeroed for the next call on the same stream."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _lookback.get(key)
+    if buf is None or buf.numel() - 2 < tiles:
+        buf = torch.zeros(2 + max(tiles, 1024), dtype=torch.int64, device=device)
+        _lookback[key] = buf
+    return buf, buf.numel() - 2
+
 
 def pack_slots(slots: torch.Tensor, cap_words: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """slots (R, S) int64 -> (words (R, cap_words) int64, bits (R,) int64
-    byte-aligned, overflow () bool); see bitpack.pack_slots."""
+    """slots (R, S) int32 (the uint32 pattern) -> (words (R, cap_words) int64,
+    bits (R,) int64 byte-aligned, overflow () bool); see bitpack.pack_slots.
+    The slots' data must be 16-byte aligned (the kernel's vector loads)."""
     if _build.on_cpu(slots):
         return bitpack.pack_slots(slots, cap_words)
     r, s = slots.shape
-    _build.check(slots, "slots", torch.int64, (r, s))
+    _build.check(slots, "slots", torch.int32, (r, s), align=16)
     words = torch.empty((r, cap_words), dtype=torch.int64, device=slots.device)
     bits = torch.empty((r,), dtype=torch.int64, device=slots.device)
+    buf, capacity = _lookback_buffer(slots.device, r * ((s + 3 + TILE - 1) // TILE))
     _build.launch("mpeg2_pack_slots", "pack_slots", slots.device,
-                  slots, words, bits, r, s, cap_words)
+                  slots, words, bits, buf, r, s, cap_words, capacity)
     return words, bits, (bits > 32 * cap_words).any()
 
 

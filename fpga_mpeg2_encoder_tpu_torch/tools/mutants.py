@@ -2,6 +2,8 @@
 
     python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py me.cu [--jobs 4]
     python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py transform.cu
+    python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py acsym.cu
+    python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py pack.cu
 
 Each mutant breaks one exactness trap (or one step of the design) of the
 kernel source with a one-line change.  It runs in its own copy of the port
@@ -95,7 +97,60 @@ MUTANTS = {
         # The IDCT's 32-bit wrap is that of its uint32 registers; no one-line
         # change of the source removes it.
     ]),
+    "acsym.cu": ("acsym", [
+        ("run_from_mask", "const int run = p - prev - 1;", "const int run = p - prev;"),
+        ("half_mask_join", "const uint64_t mask = ((uint64_t)hi << 32) | lo;",
+         "const uint64_t mask = ((uint64_t)lo << 32) | hi;"),
+        ("nibble_place", "nib << ((lane & 7) * 4)", "nib << ((lane & 3) * 4)"),
+        ("position0_slot", "if (p != 0) stage[", "stage["),
+        ("escape_run", "((uint32_t)run << 12)", "((uint32_t)run << 11)"),
+        ("escape_level12", "((uint32_t)z & 0xFFFu)", "((uint32_t)z & 0x7FFu)"),
+        ("sign_bit", "| (z < 0 ? 1u : 0u);", "| 0u;"),
+        ("b14_region", "if (run == 0 && am1 >= 8 && am1 <= 39)", "if (run == 0 && am1 >= 8 && am1 <= 40)"),
+        ("slot_index", "stage[mbs + 4 + 65 * t + p]", "stage[mbs + 3 + 65 * t + p]"),
+        ("non_ac_index", "4 + 65 * (w - 10) + 64", "4 + 65 * (w - 10) + 63"),
+        ("header_at_bx0", "w < 16 + HDR_SLOTS && mb % nbx == 0", "w < 16 + HDR_SLOTS && mb % nbx == 1"),
+        ("span_head", "if (tid < a0 - first) out", "if (tid + 1 < a0 - first) out"),
+        ("span_tail", "if (tid < end - a1) out", "if (tid + 1 < end - a1) out"),
+    ]),
+    "pack.cu": ("pack", [
+        ("byte_align", "bits[row] = ((long long)end + 7) & ~7LL;",
+         "bits[row] = ((long long)end + 7) & ~3LL;"),
+        ("code_mask", "sl[i] & ((1u << 27) - 1) & ((1u << n) - 1);", "sl[i] & ((1u << 27) - 1);"),
+        ("straddle_shift", "atomicOr(&str[wi + 1], code << (64 - e));",
+         "atomicOr(&str[wi + 1], code << (63 - e));"),
+        ("straddle_high", "atomicOr(&str[wi], code >> (e - 32));", "atomicOr(&str[wi], code >> (e - 31));"),
+        ("shared_word_atomic", "atomicOr(&str[wi], code << (32 - e));", "str[wi] = code << (32 - e);"),
+        ("tile_tail", "tail = str[0] >> (32 - total);", "tail = str[0] >> (31 - total);"),
+        ("window_first_word", "j ? str[j - 1] : s_win", "j ? str[j - 1] : 0u"),
+        ("carry_merge", ": (uint32_t)(((unsigned long long)win << total) | tail);", ": tail;"),
+        ("look_back_wait", "} while (!__all_sync(0xffffffffu, (sj & 3) != 0));", "} while (false);"),
+        ("nearest_inclusive", "const int stop = incl ? __ffs(incl) - 1 : 31;",
+         "const int stop = incl ? 31 - __clz(incl) : 31;"),
+        ("window_position", "const uint32_t at = have + sum - val;", "const uint32_t at = have + sum;"),
+        ("state_reset", "if (s_last) {", "if (false) {"),
+        ("cap_test", "const int w1 = min(cap, last ?", "const int w1 = (last ?"),
+        ("zero_fill_cap", "w < cap; w += PACK_THREADS) out[w] = 0;",
+         "w < cap - 1; w += PACK_THREADS) out[w] = 0;"),
+        # A status word carries its data with its state in one 64-bit store,
+        # so a publish needs no fence.  The last block's wait for each
+        # inclusive publish before it clears the word has no mutant: without
+        # it, a publish could land after the clear only under a reordering
+        # of the memory system that no test can provoke at will.
+    ]),
 }
+
+
+def substituted(source, subs, name):
+    """The text of csrc/``source`` with each (text, replacement) of ``subs``
+    applied; each text must occur exactly once."""
+    with open(os.path.join(PKG, "csrc", source)) as f:
+        src = f.read()
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise SystemExit(f"{name}: {old!r} occurs {src.count(old)} times in {source}")
+        src = src.replace(old, new)
+    return src
 
 
 def run(source, select, name, old=None, new=None):
@@ -108,13 +163,9 @@ def run(source, select, name, old=None, new=None):
     os.makedirs(os.path.join(d, "tests"))
     shutil.copy(os.path.join(ROOT, "tests", "test_torch_cuda.py"), os.path.join(d, "tests"))
     if old is not None:
-        path = os.path.join(d, "fpga_mpeg2_encoder_tpu_torch", "csrc", source)
-        with open(path) as f:
-            src = f.read()
-        if src.count(old) != 1:
-            raise SystemExit(f"{name}: {old!r} occurs {src.count(old)} times in {source}")
-        with open(path, "w") as f:
-            f.write(src.replace(old, new))
+        src = substituted(source, [(old, new)], name)
+        with open(os.path.join(d, "fpga_mpeg2_encoder_tpu_torch", "csrc", source), "w") as f:
+            f.write(src)
     res = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
          "-x", "-k", select, "tests/test_torch_cuda.py"],

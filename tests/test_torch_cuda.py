@@ -10,7 +10,9 @@ All equality is exact: this is an integer codec.  The shapes are small
 (64x64, 416x64 with nbx = 26, 1920x32 with nbx = 120, and 2048x32 with
 nbx = 128, the widest frame); chip_smoke.py covers 1920x1152.  The transform
 kernel's stages are also run alone on int32 tiles (transform_stage), to
-reach the wraps and clamps that pixels never reach.
+reach the wraps and clamps that pixels never reach.  The acsym and pack_slots
+kernels also get made-up operands that reach every run, escape, tile edge,
+look-back chain and cap.  Slots are int32 holding the uint32 pattern.
 """
 import numpy as np
 import pytest
@@ -132,19 +134,167 @@ def test_acsym_kernel_equals_plain(dev, w, kind):
     for i_frame in (0, 1):
         zmod, small = entropy.ac_inputs(qzig, mr.inter, mr.mvx, mr.mvy, i_frame, 1)
         got = _launched("acsym", lambda: k_acsym.ac_slot_grid(zmod, small))
-        assert torch.equal(got, entropy.ac_slot_grid(zmod, small))
+        assert got.dtype == torch.int32 and torch.equal(got, entropy.ac_slot_grid(zmod, small))
 
 
-def _slots(dev, r, s, seed):
-    """Mixed-length symbols; a third of the zero-length slots carry a dead
-    nonzero code, which must emit nothing."""
+def _acsym_operands(nby, nbx, seed):
+    """zmod and small for acsym that reach every case: per tile, runs of 0,
+    31, 32 and 62 and runs across the two 32-bit halves of the emit mask;
+    levels just inside and outside each B.14 region and the escapes +-2047;
+    all-zero and all-nonzero tiles; the position-0 emit flag on and off
+    (I-frame tiles set it); the rest random.  small carries garbage at the
+    AC slots, which the grid must not keep."""
+    rng = np.random.default_rng(seed)
+    z = np.zeros((nby * nbx * 6, 64), np.int64)
+    # (positions, levels) of one tile each; position 0 is the emit flag
+    cases = [
+        ([0, 32], [1, 5]),                     # run 31 from the flag
+        ([0, 33], [1, 1]),                     # run 32: escape
+        ([0, 63], [1, -1]),                    # run 62, the longest
+        ([63], [2]),                           # run 62 without the flag: escape
+        ([31, 32], [3, -3]),                   # run 0 across the halves
+        ([20, 45], [1, 1]),                    # run 24 across the halves
+        ([5], [1]), ([0, 5], [1, 1]),          # the flag decides run 5 or 4
+        ([0, 1], [1, 40]), ([0, 1], [1, 41]), ([0, 1], [1, -40]),  # run 0 region
+        ([0, 1], [1, -41]), ([1], [40]),
+        ([0, 2], [1, 18]), ([0, 2], [1, 19]), ([0, 2], [1, -18]),  # run 1 region
+        ([0, 10], [1, 2]), ([0, 10], [1, 3]), ([0, 18], [1, -2]),  # runs 8-16
+        ([0, 20], [1, 1]), ([0, 20], [1, 2]), ([0, 32], [1, -1]),  # runs 17-31
+        ([0, 9], [1, 8]), ([0, 9], [1, 9]), ([0, 4], [1, 6]),      # runs <= 7
+        ([1, 2], [2047, -2047]), ([63], [-2047]),                   # 12-bit escapes
+        (list(range(64)), list(rng.integers(1, 3, 64))),            # all nonzero
+        ([], []),                                                   # all zero
+    ]
+    tiles = rng.permutation(len(z))
+    for k, (pos, lev) in zip(tiles, cases * (len(z) // len(cases) // 3 + 1)):
+        z[k, pos] = lev
+    rest = tiles[len(cases) * (len(z) // len(cases) // 3 + 1):]
+    m = rng.random((len(rest), 64)) < 0.2
+    z[rest] = np.where(m, rng.choice([-2047, -300, -41, -3, -1, 1, 2, 17, 40, 2047], (len(rest), 64)), 0)
+    z[rest, 0] = rng.random(len(rest)) < 0.5
+    z[:, 0] = z[:, 0] != 0
+    s = 3 + 394 * nbx
+    small = rng.integers(-(1 << 31), 1 << 31, (nby, s), dtype=np.int64).astype(np.int32)
+    return (torch.as_tensor(z.astype(np.int32).reshape(nby, nbx * 384)),
+            torch.as_tensor(small))
+
+
+@pytest.mark.parametrize("nby,nbx", [(5, 1), (3, 26), (2, 120), (7, 3)])
+def test_acsym_kernel_cases(dev, nby, nbx):
+    """Every run, escape and B.14 edge, at nbx 1, 26 and 120 and a frame
+    whose macroblock count is no multiple of the block's 4; most blocks'
+    spans start off a 16-byte boundary."""
+    zmod, small = (t.to(dev) for t in _acsym_operands(nby, nbx, nbx))
+    got = _launched("acsym", lambda: k_acsym.ac_slot_grid(zmod, small))
+    want = entropy.ac_slot_grid(zmod, small)
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    lens = entropy.slot_len(want)
+    assert bool((lens == 24).any()) and bool((want < 0).any())
+
+
+def _slots(dev, r, s, seed, density=0.5, dirty=False):
+    """Mixed-length symbols as int32 slots; a third of the zero-length slots
+    carry a dead nonzero code, which must emit nothing; ``dirty`` also sets
+    code bits above each length, which the mask by length must drop."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(1, 25, (r, s)).astype(np.int64)
-    lens[rng.random((r, s)) < 0.5] = 0
+    lens[rng.random((r, s)) >= density] = 0
     codes = rng.integers(0, 1 << 24, (r, s)).astype(np.int64) & ((1 << lens) - 1)
     dead = (lens == 0) & (rng.random((r, s)) < 0.33)
     codes[dead] = rng.integers(1, 1 << 25, dead.sum())
-    return torch.as_tensor(codes | (lens << 27), device=dev)
+    if dirty:
+        codes |= rng.integers(0, 1 << 27, (r, s)) & ~((1 << lens) - 1)
+    return torch.as_tensor((codes | (lens << 27)).astype(np.uint32).view(np.int32), device=dev)
+
+
+def _pack_equal(slots, cap):
+    got = _launched("pack_slots", lambda: k_pack.pack_slots(slots, cap))
+    want = bitpack.pack_slots(slots, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return want
+
+
+def _row_bits_max(slots):
+    """The longest row's byte-aligned bits."""
+    return bitpack.align_bytes(entropy.slot_len(slots).to(torch.int64).sum(1)).max()
+
+
+TILE = k_pack.TILE
+
+
+@pytest.mark.parametrize("s", [100, 3 * TILE - 3, 40 * TILE - 3])
+@pytest.mark.parametrize("density", [0.02, 0.5])
+def test_pack_slots_tiles(dev, s, density):
+    """Rows of 1, 3 and 40 tiles (three rows, each at another alignment in
+    the flattened grid), sparse as a real frame and dense, with dead and
+    dirty codes; caps that hold every row, then ones that cut each row mid
+    row, inside a word."""
+    slots = _slots(dev, 3, s, s, density, dirty=True)
+    _, bits, _ = _pack_equal(slots, int(_row_bits_max(slots)) // 32 + 2)
+    assert bool((bits % 32 != 0).any())
+    _pack_equal(slots, int(bits.min()) // 64 + 1)
+
+
+def _sparse_rows(dev, r, s, sym, seed):
+    """Rows with one symbol (code, len) per tile, at a random slot of it:
+    many tiles share one word, and every tile's bits fit in one word."""
+    rng = np.random.default_rng(seed)
+    u = np.zeros((r, s), np.int64)
+    for row in range(r):
+        start = (row * s) & 3                # tile edges, row-relative
+        for e in range(-start, s, TILE):
+            k = e + int(rng.integers(0, TILE))
+            if 0 <= k < s:
+                u[row, k] = sym[0] | sym[1] << 27
+    return torch.as_tensor(u.astype(np.uint32).view(np.int32), device=dev)
+
+
+def _edge_rows(dev, r, s, seed):
+    """Long symbols in the last and first slots of every tile and random ones
+    elsewhere, so symbols straddle words across tile edges."""
+    rng = np.random.default_rng(seed)
+    lens = np.where(rng.random((r, s)) < 0.05, rng.integers(1, 25, (r, s)), 0)
+    for row in range(r):
+        start = (row * s) & 3
+        for e in range(TILE - start, s, TILE):
+            lens[row, e - 1] = 23
+            lens[row, e] = 21
+    codes = rng.integers(0, 1 << 24, (r, s)) & ((1 << lens) - 1)
+    return torch.as_tensor((codes | lens << 27).astype(np.uint32).view(np.int32), device=dev)
+
+
+@pytest.mark.parametrize("kind", ["one-bit", "five-bit", "edges", "zero-rows", "worst"])
+def test_pack_slots_look_back(dev, kind):
+    """The chained scan across tiles: tiles of 1 or 5 bits that share words,
+    chains of aggregates whose 32-bit window spans many tiles; symbols that
+    straddle words at tile edges; all-zero tiles and rows between full ones;
+    the worst case, every slot 24 bits.  Caps cut the longest row in its
+    last word, the word before, and mid-row; a second call on other operands follows at
+    once, so one call's look-back state cannot leak into the next."""
+    s = 20 * TILE + 7
+    if kind in ("one-bit", "five-bit"):
+        slots = _sparse_rows(dev, 4, s, (1, 1) if kind == "one-bit" else (0b10110, 5), 1)
+    elif kind == "edges":
+        slots = _edge_rows(dev, 4, s, 2)
+    elif kind == "zero-rows":
+        slots = _slots(dev, 5, s, 3, 0.3)
+        slots[1] = 0
+        slots[3, TILE:5 * TILE] = 0
+    else:
+        slots = torch.full((2, 3 * TILE - 1), (5 | 24 << 27) - (1 << 32),
+                           dtype=torch.int32, device=dev)
+    _, bits, _ = _pack_equal(slots, int(_row_bits_max(slots)) // 32 + 3)
+    top = int(bits.max())
+    for cap in (top // 32, top // 32 - 1, top // 64 + 1, 1, 0):
+        _pack_equal(slots, max(cap, 0))
+    other = _slots(dev, 3, s // 2, 4, 0.1)
+    got = [k_pack.pack_slots(t, 900) for t in (slots, other, slots)]
+    torch.cuda.synchronize()
+    for g, t in zip(got, (slots, other, slots)):
+        for a, b in zip(g, bitpack.pack_slots(t, 900)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("r,s", [(6, 3 + 394 * 4), (6, 3 + 394 * 26), (3, 5000)])
@@ -153,11 +303,8 @@ def test_pack_and_merge_kernels_equal_plain(dev, r, s, cap):
     """Caps of 16 words force overflow: the kept words, the bit counts and
     the flag must still equal the plain version's."""
     slots = _slots(dev, r, s, s + cap)
-    got = _launched("pack_slots", lambda: k_pack.pack_slots(slots, cap))
-    want = bitpack.pack_slots(slots, cap)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert bool(got[2]) == (cap == 16)
+    want = _pack_equal(slots, cap)
+    assert bool(want[2]) == (cap == 16)
     words, bits = want[0], want[1]
     for frame_cap in (8, r * cap):
         mw, mb = _launched("merge_rows", lambda: k_pack.merge_rows(words, bits, frame_cap))
@@ -168,7 +315,7 @@ def test_pack_and_merge_kernels_equal_plain(dev, r, s, cap):
 def test_pack_symbols_wrapper_equals_plain(dev):
     """pack_symbols launches the pack_slots kernel and no kernel of its own."""
     slots = _slots(dev, 6, 3 + 394 * 26, 3)
-    codes, lens = slots & ((1 << 27) - 1), slots >> 27
+    codes, lens = slots & entropy.SLOT_CODE_MASK, entropy.slot_len(slots)
     before = dict(_build.LAUNCHES)
     got = k_pack.pack_symbols(codes, lens, 4096)
     torch.cuda.synchronize()
@@ -320,13 +467,18 @@ def test_me_kernels_middle_band_equal_plain(dev, form, backward):
 def test_wrappers_check_inputs(dev):
     slots = _slots(dev, 2, 100, 0)
     with pytest.raises(TypeError, match="dtype"):
-        k_pack.pack_slots(slots.to(torch.int32), 64)
+        k_pack.pack_slots(slots.to(torch.int64), 64)
+    with pytest.raises(ValueError, match="aligned"):          # the 16-byte loads
+        k_pack.pack_slots(slots.reshape(-1)[1:101].view(1, 100), 64)
+    with pytest.raises(TypeError, match="dtype"):
+        k_acsym.ac_slot_grid(torch.zeros((1, 384), dtype=torch.int32, device=dev),
+                             torch.zeros((1, 397), dtype=torch.int64, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         k_pack.merge_rows(torch.zeros((64, 2), dtype=torch.int64, device=dev).t(),
                           torch.zeros(2, dtype=torch.int64, device=dev), 64)
     with pytest.raises(ValueError, match="several devices"):
         k_acsym.ac_slot_grid(torch.zeros((1, 384), dtype=torch.int32),
-                             torch.zeros((1, 397), dtype=torch.int64, device=dev))
+                             torch.zeros((1, 397), dtype=torch.int32, device=dev))
     y = torch.zeros((64, 64), dtype=torch.uint8, device=dev)
     c = torch.zeros((32, 32), dtype=torch.uint8, device=dev)
     with pytest.raises(TypeError, match="dtype"):

@@ -100,6 +100,23 @@ def test_overflow_retry_is_byte_identical(monkeypatch, chunk):
     assert got == _golden(cfg, frames, 64, 64, 1)
 
 
+def test_stitch_slots_host_reads_int32_slots_as_uint32():
+    """The overflow retry's host stitcher on an int32 slot grid with lengths
+    >= 16 (negative as int32): byte-identical to packing and merging the same
+    grid on the device path's plain versions."""
+    from fpga_mpeg2_encoder_tpu_torch.ops import bitpack
+    rng = np.random.default_rng(5)
+    lens = rng.integers(0, 25, (4, 333)).astype(np.int64)
+    codes = rng.integers(0, 1 << 24, (4, 333)).astype(np.int64) & ((1 << lens) - 1)
+    slots = bitpack.symbol_slots(torch.from_numpy(codes), torch.from_numpy(lens))
+    assert slots.dtype == torch.int32 and bool((slots < 0).any())
+    words, bits, ovf = bitpack.pack_slots(slots, 512)
+    payload, nbits = bitpack.merge_rows(words, bits, 2048)
+    assert not bool(ovf)
+    want = M.words_to_bytes(payload.numpy(), int(nbits))
+    assert M.stitch_slots_host(slots) == want
+
+
 def test_state_handover_from_jax_encoder():
     """The JAX encoder's state after 3 frames (numpy recon planes), handed to
     the port, finishes the sequence to the same bytes."""

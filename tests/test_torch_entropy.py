@@ -1,7 +1,9 @@
 """The port's symbolisation (ops/entropy.py, with ac_slot_grid as the plain
 version of the acsym kernel) against the JAX package's symbolize_frame on
 both its XLA path and its Pallas acsym kernel in interpret mode.  Slot grids
-are compared masked by length: a zero-length slot may carry a dead code."""
+are compared masked by length: a zero-length slot may carry a dead code.  The
+port's grid is int32 holding the uint32 pattern; it is compared read as
+uint32, on grids that hold slots of length >= 16 (negative as int32)."""
 import numpy as np
 import pytest
 import torch
@@ -41,8 +43,17 @@ def _symbols(nby, nbx, seed):
 
 
 def _masked(slots):
-    slots = np.asarray(slots).astype(np.int64)
+    """uint32 slots -> int64, zero where the length is zero."""
+    slots = np.asarray(slots)
+    assert slots.dtype == np.uint32
+    slots = slots.astype(np.int64)
     return np.where((slots >> 27) > 0, slots, 0)
+
+
+def _port_grid(grid: torch.Tensor) -> np.ndarray:
+    """The port's int32 slot grid read as the uint32 it holds."""
+    assert grid.dtype == torch.int32
+    return grid.numpy().view(np.uint32)
 
 
 @pytest.mark.parametrize("nbx", [4, 26])
@@ -53,7 +64,9 @@ def test_symbolize_matches_jax(acsym_impl, nbx, i_frame, frame_no):
     zig, inter, mvx, mvy = _symbols(3, nbx, nbx + i_frame)
     got = entropy.symbolize_frame(torch.from_numpy(zig), torch.from_numpy(inter),
                                   torch.from_numpy(mvx), torch.from_numpy(mvy),
-                                  i_frame, frame_no, 2).numpy()
+                                  i_frame, frame_no, 2)
+    got = _port_grid(got)
+    assert ((got >> 27) >= 16).any() and (got >= 1 << 31).any()
     for impl in ("xla", "pallas"):
         jentropy._ACSYM_IMPL = impl
         # a fresh function per implementation: jit must not reuse a trace
@@ -81,3 +94,20 @@ def test_ac_slot_grid_zero_slots_and_wrapper_on_cpu():
     non_ac = torch.ones_like(out, dtype=torch.bool)
     non_ac[:, 3:].view(2, 5, 394)[:, :, 4:].view(2, 5, 6, 65)[..., 1:64] = False
     assert torch.equal(out[non_ac], small[non_ac])
+
+
+@pytest.mark.parametrize("i_frame", [0, 1])
+def test_ac_slot_grid_int32_matches_jax_kernel(acsym_impl, i_frame):
+    """The plain acsym on its own operands against the JAX package's Pallas
+    acsym kernel (interpret mode) on the same operands as uint32: escapes
+    (length 24) and B.14 codes of length >= 16 must not sign-extend."""
+    zig, inter, mvx, mvy = _symbols(2, 4, 20 + i_frame)
+    zig[1, 2, 5, 1:] = np.arange(1, 64)              # long codes, then escapes
+    zmod, small = entropy.ac_inputs(torch.from_numpy(zig), torch.from_numpy(inter),
+                                    torch.from_numpy(mvx), torch.from_numpy(mvy), i_frame, 2)
+    assert zmod.dtype == small.dtype == torch.int32
+    got = _port_grid(entropy.ac_slot_grid(zmod, small))
+    want = np.asarray(k_acsym.ac_slot_grid_pallas(jnp.asarray(zmod.numpy()),
+                                                  jnp.asarray(small.numpy().view(np.uint32))))
+    assert ((got >> 27) >= 16).any()
+    assert np.array_equal(_masked(got), _masked(want))

@@ -1,6 +1,8 @@
 """The port's bit packing (ops/bitpack.py, the plain versions of the pack and
 merge kernels) against the JAX package's XLA merge trees and its Pallas pack
-and merge kernels in interpret mode, on rows that do not overflow."""
+and merge kernels in interpret mode, on rows that do not overflow.  The
+port's slots are int32 holding the uint32 pattern (negative from length 16
+up); the JAX package's are uint32."""
 import numpy as np
 import pytest
 import torch
@@ -26,15 +28,17 @@ def interpret_pack():
 
 
 def _slots(r, s, seed):
-    """Mixed-length symbols; a third of the zero-length slots carry a dead
-    nonzero code, which must emit nothing."""
+    """Mixed-length symbols as int32 slots; a third of the zero-length slots
+    carry a dead nonzero code, which must emit nothing."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(1, 25, (r, s)).astype(np.int64)
     lens[rng.random((r, s)) < 0.5] = 0
     codes = rng.integers(0, 1 << 24, (r, s)).astype(np.int64) & ((1 << lens) - 1)
     dead = (lens == 0) & (rng.random((r, s)) < 0.33)
     codes[dead] = rng.integers(1, 1 << 25, dead.sum())
-    return codes | (lens << 27)
+    slots = (codes | (lens << 27)).astype(np.uint32).view(np.int32)
+    assert (slots < 0).any()                     # lengths >= 16
+    return slots
 
 
 def _rows(r, c, seed):
@@ -57,7 +61,7 @@ def test_pack_slots_matches_jax(interpret_pack, r, s, cap, impls):
     slots = _slots(r, s, s)
     words, bits, ovf = bitpack.pack_slots(torch.from_numpy(slots), cap)
     assert not bool(ovf)
-    jslots = jnp.asarray(slots.astype(np.uint32))
+    jslots = jnp.asarray(slots.view(np.uint32))
     for impl in impls:
         jbitpack._PACK_IMPL = impl
         if impl == "xla":
@@ -74,7 +78,7 @@ def test_pack_symbols_matches_jax(interpret_pack):
     """pack_symbols, the plain version and the port's wrapper on CPU tensors,
     against the JAX package's XLA pack_symbols and its Pallas pack_symbols
     (interpreted), on rows that do not overflow."""
-    slots = _slots(4, 300, 11)
+    slots = _slots(4, 300, 11).view(np.uint32).astype(np.int64)
     lens = slots >> 27
     codes = slots & ((1 << 27) - 1) & ((1 << lens) - 1)
     jcodes, jlens = jnp.asarray(codes.astype(np.uint32)), jnp.asarray(lens.astype(np.int32))
@@ -107,6 +111,21 @@ def test_merge_rows_matches_jax(interpret_pack, r, c, cap, pallas):
         assert np.array_equal(got_w.numpy(), np.asarray(want_w).astype(np.int64))
 
 
+def test_symbol_slots_are_int32_uint32_patterns():
+    """symbol_slots narrows code | len << 27 to int32 (wrapping), and
+    pack_slots reads it back as uint32: the same words as from the int64
+    values of the same pattern."""
+    slots = _slots(3, 200, 5)
+    u = slots.view(np.uint32).astype(np.int64)
+    lens, codes = u >> 27, u & ((1 << 27) - 1) & ((1 << (u >> 27)) - 1)
+    got = bitpack.symbol_slots(torch.from_numpy(codes), torch.from_numpy(lens))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy().view(np.uint32), (codes | lens << 27).astype(np.uint32))
+    w32, b32, _ = bitpack.pack_slots(torch.from_numpy(slots), 256)
+    w64, b64, _ = bitpack.pack_slots(torch.from_numpy(u), 256)
+    assert torch.equal(w32, w64) and torch.equal(b32, b64)
+
+
 def test_pack_overflow_is_exact_and_truncates():
     """A row overflows iff its bits exceed 32 * cap; the words kept are the
     first cap words of the uncapped row."""
@@ -136,6 +155,17 @@ def test_wrappers_run_plain_versions_on_cpu_and_refuse_other_devices():
         port_kernel.pack_slots(slots.to("meta"), 256)
     with pytest.raises(ValueError, match="several devices"):
         port_kernel.merge_rows(w, b.to("meta"), 1024)
+
+
+def test_pack_wrapper_tile_matches_kernel_source():
+    """The wrapper sizes the look-back buffer by TILE slots a tile: it must
+    be the kernel's PACK_THREADS * SPT."""
+    import os
+    import re
+    src = open(os.path.join(_build.CSRC, "pack.cu")).read()
+    threads, spt = (int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+                    for n in ("PACK_THREADS", "SPT"))
+    assert threads * spt == port_kernel.TILE
 
 
 def test_append_bitstring_sizing_contract_and_offsets():
