@@ -12,11 +12,15 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    1920x1152, 416x64 and 64x64 shapes of bench.py content, exact equality
    (an integer codec: the tolerance is zero); the motion kernels for I and
    P frames, and the fused one also against the luma kernel followed by the
-   chroma kernel.  At 1920x1152 both are timed two ways: device time from
-   torch.profiler (the kernel alone; all the plain version's kernels), and
-   time per call from CUDA events around back-to-back calls, which includes
-   the host's cost where the host is the slower side;
-4. stages: the time of each stage of one 1920x1152 P-frame;
+   chroma kernel; the merge kernel as merge_rows and as merge_append (the
+   frame loop's form) at every seq_bits & 31, cut at a cap and clamped.  At
+   1920x1152 both are timed two ways: device time from torch.profiler (the
+   kernel alone; all the plain version's kernels), and time per call from
+   CUDA events around back-to-back calls, which includes the host's cost
+   where the host is the slower side;
+4. stages: the time of each stage of one 1920x1152 P-frame, the merge and
+   append both as two stages (merge_rows, then the plain append) and as the
+   frame loop runs them (merge+append, one kernel);
 5. end to end at 1920x1152, 96 frames, vl=3 q=2, IPPP (pframes_count=23):
    (a) the multi-frame path at bench.py's caps must hash to bench.py's
        PAYLOAD_SHA256, then a timed repeat gives MPixels/s;
@@ -24,6 +28,7 @@ Phases, one line each (any failure raises and the exit code is non-zero):
        bytes with the SHA-256 of the JAX package's 1080p chunked soak;
    each run must launch every main-path kernel at least once per frame, and
    the split motion kernels never (phase 3 holds them against the fused one);
+   (a) must run no plain append: the merge kernel appends each frame;
 6. profile: 16 frames of the main path under torch.profiler: kernels
    launched and device time per frame, the device's idle share, and the
    kernels that take the most time.
@@ -70,7 +75,9 @@ SOURCES = {k: f"fpga_mpeg2_encoder_tpu_torch/csrc/{f}" for k, f in (
     ("merge_rows", "pack.cu"), ("me_fused", "me.cu"), ("me_luma", "me.cu"),
     ("chroma_pred", "me.cu"))}
 SOURCES["pack_symbols"] = "fpga_mpeg2_encoder_tpu_torch/ops/kernels/pack.py"
-REDESIGNED = {"me_fused": "PR 3", "transform": "PR 3", "acsym": "PR 4", "pack_slots": "PR 4"}
+REDESIGNED = {"me_fused": "PR 3", "transform": "PR 3", "acsym": "PR 4", "pack_slots": "PR 4",
+              "merge_rows": "PR 5", "chroma_pred": "PR 5"}
+TIMED_APPEND = "append s=13"   # the merge kernel's timed check: merge_append, the main path's form
 KERNEL_SYMBOLS = {"transform": "transform_kernel", "acsym": "acsym_kernel",
                   "pack_slots": "pack_slots_kernel", "merge_rows": "merge_rows_kernel",
                   "me_fused": "me_fused_kernel", "me_luma": "me_luma_kernel",
@@ -168,6 +175,7 @@ def main():
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
+    from fpga_mpeg2_encoder_tpu_torch.utils.testdata import random_sequence
 
     def bound(nbytes_moved, ops):
         """(bound_ms, bound_by): the larger of the bytes over the memory rate
@@ -297,6 +305,33 @@ def main():
                            lambda c=cap: k_pack.merge_rows(rw, rb, c),
                            lambda c=cap: bitpack.merge_rows(rw, rb, c),
                            (needed + WORD_BYTES * cap, 0)))
+        # the merge kernel's append mode (merge_append, the frame loop's
+        # form) at every seq_bits & 31, cut at a small cap, and with its
+        # offset clamped: a buffer each for the kernel and the plain version,
+        # random bits before seq_bits; repeated calls OR the same bits again
+        fbits = int(rb.sum())
+        rng = np.random.default_rng(w)
+
+        def seq_pair(n_words, seq_bits):
+            seq = torch.as_tensor(random_sequence(rng, n_words, seq_bits), device=dev)
+            return seq, seq.clone(), torch.tensor(seq_bits, device=dev)
+
+        fcap = CAPS["frame_cap"]
+        cases = [(f"append s={k}", fcap, 2048, 32 * 1000 + k) for k in range(32)]
+        cases += [("append cap 64 overflow", 64, 2048, 32 * 1000 + 9),
+                  ("append clamped", fcap, 4, 32 * (fcap + 50) + 5)]
+        for label, cap, spare, seq_bits in cases:
+            seq_k, seq_p, sb = seq_pair(cap + 1 + spare, seq_bits)
+            # the words under the frame's bits and the row bits read; the
+            # sequence words under the frame's bits read and written
+            touched = (min(fbits, 32 * cap) + seq_bits % 32 + 31) // 32
+            checks.append((label, "merge_rows",
+                           lambda a=(seq_k, sb, cap): k_pack.merge_append(
+                               a[0], a[1], rw, rb, a[2]),
+                           lambda a=(seq_p, sb, cap): bitpack.merge_append(
+                               a[0], a[1], rw, rb, a[2]),
+                           (needed + 2 * WORD_BYTES * touched, 0)
+                           if label == TIMED_APPEND else None))
         for label, kname, kern, plain, work in checks:
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -305,7 +340,8 @@ def main():
                 raise AssertionError(f"{kname} {w}x{h} {label}: kernel != plain "
                                      f"(max abs err {err})")
             if "overflow" in label:
-                flag = got[1] > 32 * 64 if kname == "merge_rows" else got[2]
+                flag = (got[3] if label.startswith("append") else got[1] > 32 * 64) \
+                    if kname == "merge_rows" else got[2]
                 if not bool(flag):
                     raise AssertionError(f"{kname} {w}x{h} {label}: no overflow")
             times = ""
@@ -314,11 +350,11 @@ def main():
                 t = dict(ms=device_ms(kern, KERNEL_SYMBOLS[kname]), plain_ms=device_ms(plain),
                          call_ms=cuda_ms(kern), plain_call_ms=cuda_ms(plain),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
-                if kname not in timing or label in ("P", "P maps"):
+                if kname not in timing or label in ("P", "P maps", TIMED_APPEND):
                     timing[kname] = (t, err)
                 times = (f"  kernel {t['ms']:.4f} ms on device ({t['call_ms']:.4f} per call)"
                          f"  plain {t['plain_ms']:.4f} ms on device ({t['plain_call_ms']:.4f}"
-                         f" per call)  bound {b_ms:.4f} ms ({b_by}: {work[0] / 1e6:.2f} MB,"
+                         f" per call)  bound {b_ms:.5f} ms ({b_by}: {work[0] / 1e6:.2f} MB,"
                          f" {work[1] / 1e6:.1f} M int ops)")
             print(f"3 kernel {kname:12s} {w}x{h} {label:18s} exact{times}", flush=True)
 
@@ -351,6 +387,8 @@ def main():
     seq = torch.zeros(SEQ_CAP + CAPS["frame_cap"] + 1, dtype=torch.int64, device=dev)
     sb = torch.zeros((), dtype=torch.int64, device=dev)
     st["append (plain)"] = cuda_ms(lambda: bitpack.append_bitstring(seq, sb, fw, fb))
+    st["merge+append (kernel)"] = cuda_ms(lambda: k_pack.merge_append(
+        seq, sb, rw, rb, CAPS["frame_cap"]))
     st["whole frame"] = cuda_ms(lambda: M.encode_frame_core(
         fy[1], fu[1], fv[1], y0, u0, v0, 1, 1, **kw, **CAPS))
     print("4 stages (ms per 1920x1152 P-frame): "
@@ -383,8 +421,15 @@ def main():
             raise AssertionError(f"{tag}: payload does not start with GOP + picture headers")
         return payload
 
+    def no_plain_append(*args, **kwargs):
+        raise AssertionError("5a: the multi-frame path ran the plain append")
+
     _build.reset_launches()
-    out = run_a()
+    plain_append, bitpack.append_bitstring = bitpack.append_bitstring, no_plain_append
+    try:
+        out = run_a()
+    finally:
+        bitpack.append_bitstring = plain_append
     torch.cuda.synchronize()
     launches_a = check_launches("5a", MAIN_PATH, ("me_luma", "chroma_pred"))
     if bool(out[7]):

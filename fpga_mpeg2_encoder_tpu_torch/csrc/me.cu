@@ -1,7 +1,7 @@
 // Motion estimation + prediction (stages X/Y/Z/F, RTL/mpeg2encoder.v:1310-1918).
 //
-// Three kernels over shared device functions, one block of 128 threads per
-// macroblock:
+// Three kernels.  The first two share their device functions and run one
+// block of 128 threads per macroblock:
 // * me_fused_kernel: luma search + luma prediction + U/V prediction.
 //   Replaces ops/pallas/me.py::motion_estimate_fused_pallas of the JAX
 //   package (body _kernel_fused); plain version
@@ -10,7 +10,9 @@
 //   (body _me_body); plain version ops/motion.py::estimate_luma.
 // * chroma_pred_kernel: the U/V half from (inter, mvx, mvy) maps in device
 //   memory.  Replaces chroma_pred_pallas (body _chroma_predict); plain
-//   version ops/motion.py::chroma_pred.
+//   version ops/motion.py::chroma_pred.  Its own design, one warp per
+//   macroblock (see chroma_pred_kernel): the fused kernel keeps its
+//   chroma_predict stage.
 //
 // What bounds it: per P-frame macroblock the search does (2*yr+1)^2 * 256
 // absolute differences (169 * 256 at yr = 6) against 640 bytes of input
@@ -408,14 +410,77 @@ __global__ void __launch_bounds__(ME_THREADS) me_luma_kernel(
   }
 }
 
-__global__ void __launch_bounds__(128) chroma_pred_kernel(
+// C, chroma_pred_kernel: bound by its 2.3 MB at 1920x1152 (U and V read,
+// the predictions written), a few bytes per macroblock.  One warp per
+// macroblock, CHROMA_WARPS macroblocks a block: lane (plane, row 0-7, half
+// 0-1) is 32 lanes, U and V of one macroblock.  A lane forms its 4 output
+// bytes as one word: it loads the two aligned words under bytes fx .. fx+4
+// of its reference row (and of the next row when hy is set) and aligns them
+// with funnel shifts; a word outside the plane reads as 0, as cpix reads.
+// The two-tap average is __vavgu4 ((1 + a + b) >> 1 a byte); the four-tap one
+// is summed in 16-bit lanes, even and odd bytes apart, since two rounded
+// pair averages round twice.  The word is stored aligned, in tiles or in
+// the plane.
+constexpr int CHROMA_WARPS = 8;
+
+// Word w (bytes 4w .. 4w+3) of row py of a chroma plane of wc4 words a row
+// and `rows` rows; 0 outside the plane.
+__device__ __forceinline__ uint32_t cword(const uint32_t* __restrict__ plane, int py, int w,
+                                          int rows, int wc4) {
+  return py >= 0 && py < rows && w >= 0 && w < wc4 ? __ldg(plane + (size_t)py * wc4 + w) : 0u;
+}
+
+// Bytes fx .. fx+3 of row py (a) and their right neighbours fx+1 .. fx+4 (b),
+// byte k of the word the pixel at column fx + k.
+__device__ __forceinline__ void crow(const uint32_t* __restrict__ plane, int py, int fx,
+                                     int rows, int wc4, uint32_t& a, uint32_t& b) {
+  const int w = fx >> 2, sh = 8 * (fx & 3);        // fx >> 2 floors negative columns
+  const uint32_t w0 = cword(plane, py, w, rows, wc4), w1 = cword(plane, py, w + 1, rows, wc4);
+  a = __funnelshift_r(w0, w1, sh);
+  b = __funnelshift_rc(w0, w1, sh + 8);            // a shift of 32 gives w1
+}
+
+// (1 + a + b + c + d) >> 2 of each byte, in 16-bit lanes
+__device__ __forceinline__ uint32_t avg4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  const uint32_t m = 0x00FF00FFu;
+  const uint32_t even = (a & m) + (b & m) + (c & m) + (d & m) + 0x00010001u;
+  const uint32_t odd = ((a >> 8) & m) + ((b >> 8) & m) + ((c >> 8) & m) + ((d >> 8) & m) +
+                       0x00010001u;
+  return ((even >> 2) & m) | (((odd >> 2) & m) << 8);
+}
+
+__global__ void __launch_bounds__(32 * CHROMA_WARPS) chroma_pred_kernel(
     const uint8_t* __restrict__ prev_u, const uint8_t* __restrict__ prev_v,
     const uint8_t* __restrict__ inter, const int32_t* __restrict__ mvx,
     const int32_t* __restrict__ mvy, uint8_t* __restrict__ pred_u,
     uint8_t* __restrict__ pred_v, int nby, int nbx, int halo, int as_plane) {
-  const int mb = blockIdx.x, by = mb / nbx, bx = mb - by * nbx;
-  chroma_predict(prev_u, prev_v, pred_u, pred_v, by, bx, nby, nbx,
-                 halo ? 4 : 0, as_plane, inter[mb] != 0, mvx[mb], mvy[mb]);
+  const int mb = blockIdx.x * CHROMA_WARPS + (threadIdx.x >> 5);
+  if (mb >= nby * nbx) return;
+  const int lane = threadIdx.x & 31, is_v = lane >> 4, r = (lane >> 1) & 7, half = lane & 1;
+  const int by = mb / nbx, bx = mb - by * nbx;
+  const int halo_rows = halo ? 4 : 0, rows = nby * 8 + 2 * halo_rows, wc4 = nbx * 2;
+  // the three loads at once: the mvs do not wait for the inter flag
+  const bool is_inter = inter[mb];
+  const int m_x = mvx[mb], m_y = mvy[mb];
+  uint32_t v = 0x80808080u;                        // intra predicts 128
+  if (is_inter) {
+    // arithmetic m_x >> 2 and (m_x >> 1) & 1 on negative mvs (me.py:363-364)
+    const int fy = by * 8 + (m_y >> 2) + r + halo_rows, fx = bx * 8 + (m_x >> 2) + 4 * half;
+    const bool hx = (m_x >> 1) & 1, hy = (m_y >> 1) & 1;
+    const uint32_t* plane = reinterpret_cast<const uint32_t*>(is_v ? prev_v : prev_u);
+    uint32_t a, b, c = 0, d = 0;
+    crow(plane, fy, fx, rows, wc4, a, b);
+    if (hy) crow(plane, fy + 1, fx, rows, wc4, c, d);
+    // rounding as me.py:338-340
+    if (hx && hy) v = avg4(a, b, c, d);
+    else if (hx) v = __vavgu4(a, b);
+    else if (hy) v = __vavgu4(a, c);
+    else v = a;
+  }
+  uint8_t* out = is_v ? pred_v : pred_u;
+  const size_t at = as_plane ? (size_t)(by * 8 + r) * (nbx * 8) + bx * 8 + 4 * half
+                             : (size_t)mb * 64 + r * 8 + 4 * half;
+  *reinterpret_cast<uint32_t*>(out + at) = v;
 }
 
 }  // namespace
@@ -454,7 +519,9 @@ extern "C" int mpeg2_chroma_pred(const void* prev_u, const void* prev_v,
                                  const void* mvy, void* pred_u, void* pred_v,
                                  int nby, int nbx, int halo, int as_plane,
                                  void* stream) {
-  chroma_pred_kernel<<<nby * nbx, 128, 0, (cudaStream_t)stream>>>(
+  const int blocks = (nby * nbx + CHROMA_WARPS - 1) / CHROMA_WARPS;
+  if (blocks == 0) return 0;
+  chroma_pred_kernel<<<blocks, 32 * CHROMA_WARPS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)prev_u, (const uint8_t*)prev_v, (const uint8_t*)inter,
       (const int32_t*)mvx, (const int32_t*)mvy, (uint8_t*)pred_u,
       (uint8_t*)pred_v, nby, nbx, halo, as_plane);

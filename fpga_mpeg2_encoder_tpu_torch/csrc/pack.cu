@@ -4,9 +4,11 @@
 //   left-justified, byte-aligned bit-string of cap words.  Replaces
 //   ops/pallas/pack.py::pack_slots_pallas of the JAX package; plain version
 //   ops/bitpack.py::pack_slots.
-// merge_rows: concatenate R byte-aligned rows into one frame payload.
-//   Replaces ops/pallas/pack.py::merge_rows_pallas; plain version
-//   ops/bitpack.py::merge_rows.
+// merge_rows: concatenate R byte-aligned rows into one frame payload, and
+//   merge_append: the same rows appended straight to the sequence buffer
+//   (merge_rows then append_bitstring).  Both replace
+//   ops/pallas/pack.py::merge_rows_pallas; plain versions
+//   ops/bitpack.py::merge_rows and merge_append.
 //
 // pack_slots is bound by reading the slots (4 bytes each, 14 MB a 1920x1152
 // frame, where a slot averages under half a bit) and writing the words.
@@ -38,14 +40,31 @@
 //   clears each status word only after it has read that word's inclusive
 //   publish, so no publish of the call can land after the clear and leak
 //   into the next call (see the kernel's end).
-// merge_rows: one thread per input word; the row's start is the sum of the
-//   earlier rows' bit counts, and the word lands in one or two output words
-//   with a funnel shift.  Rows are byte- not word-aligned, so neighbouring
-//   rows meet inside shared boundary words: atomicOr into a zeroed payload.
+// merge (merge_rows_kernel): bound by the launch.  A 1920x1152 frame is
+//   about 42 000 words under its bits (0.5 MB read and written at 4 bytes a
+//   word), against a 2 MB frame buffer.  So no frame buffer, no memset and no
+//   atomics: one thread per OUTPUT word, in a fixed grid of a few blocks per
+//   SM with a grid-stride loop, and the host never reads a count.
+// * Every block scans the rows' bit counts into shared memory (a shuffle
+//   scan, MERGE_THREADS rows at a time, for any R).
+// * The thread of an output word finds the last row that starts before the
+//   word's end by a binary search over the starts, and walks back over the
+//   rows whose bits reach into the word, forming the word from at most two
+//   words of each row with a funnel shift.  Rows are zero past their bit
+//   count, as pack_slots leaves them (the plain version's contract).
+// * Two modes.  Store (merge_rows) writes every word of the (cap,) payload,
+//   zeros included.  Append (merge_append) reads seq_bits on the device and
+//   ORs each nonzero word into the sequence from word seq_bits >> 5 on,
+//   shifted by seq_bits & 31, with append_bitstring's clamp of that offset:
+//   one read-modify-write per word, and only the words under the frame's
+//   bits.  Frame bits at or past 32 * cap are dropped, as merge_rows drops
+//   them.  Block 0 writes the frame's bit count, the new seq_bits (to its own
+//   tensor: other blocks read the old one) and the overflow flag.
 //
 // Slots are int32 holding uint32 code | len << 27 (len <= 31); every code is
 // masked to its length, so a zero-length slot emits nothing whatever code it
 // carries.  Words are int64 holding uint32 values.
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -56,6 +75,9 @@ constexpr int SPT = 8;                                 // slots per thread, a mu
 constexpr int TILE = SPT * PACK_THREADS;               // slots per tile
 constexpr int TILE_WORDS = (TILE * 31 + 31) / 32 + 3;  // its longest string, and 2 zero words
 constexpr uint32_t ST_AGG = 1, ST_INCL = 2;            // status states
+constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_BLOCKS_PER_SM = 2;
+constexpr int MERGE_MAX_ROWS = 4096;                   // its starts in shared memory: 32 KB
 
 // Look-back state, in one zeroed buffer per stream: one 64-bit counter,
 // the tickets taken in its low half and the blocks done in its high half,
@@ -226,28 +248,87 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_slots_kernel(
   }
 }
 
-__global__ void merge_rows_kernel(const int64_t* __restrict__ words,
-                                  const int64_t* __restrict__ bits,
-                                  int64_t* __restrict__ out, int c, int cap) {
-  __shared__ long long start;
-  const int r = blockIdx.x;
-  if (threadIdx.x == 0) {
-    long long acc = 0;
-    for (int i = 0; i < r; i++) acc += bits[i];
-    start = acc;
+// The merge's operands.  seq_bits == nullptr is the store mode: out is the
+// (frame_cap,) payload; else out is the sequence of out_words words.
+struct MergeArgs {
+  const int64_t* words;
+  const int64_t* bits;
+  int64_t* out;
+  const int64_t* seq_bits;
+  int64_t* seq_bits_out;
+  int64_t* frame_bits;
+  bool* overflow;
+  int r, c, frame_cap;
+  long long out_words;
+};
+
+__global__ void __launch_bounds__(MERGE_THREADS) merge_rows_kernel(MergeArgs m) {
+  extern __shared__ long long start[];       // r + 1: the bits of rows 0 .. i-1
+  __shared__ long long warp_sums[MERGE_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  if (tid == 0) start[0] = 0;
+  long long carry = 0;
+  for (int base = 0; base < m.r; base += MERGE_THREADS) {
+    const int i = base + tid;
+    const long long own = i < m.r ? m.bits[i] : 0;
+    long long x = own;
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane == 31) warp_sums[wid] = x;
+    __syncthreads();
+    long long before = carry;
+    for (int k = 0; k < MERGE_THREADS / 32; k++) {
+      if (k < wid) before += warp_sums[k];
+      carry += warp_sums[k];
+    }
+    if (i < m.r) start[i + 1] = before + x;
+    __syncthreads();
   }
-  __syncthreads();
-  const long long k = (long long)blockIdx.y * blockDim.x + threadIdx.x;
-  if (k >= c || 32 * k >= bits[r]) return;
-  const uint32_t w = (uint32_t)words[(long long)r * c + k];
-  if (w == 0) return;
-  const long long o = start + 32 * k, wi = o >> 5;
-  const int b = (int)(o & 31);
-  unsigned long long* dst = (unsigned long long*)out;
-  if (wi < cap) atomicOr(dst + wi, (unsigned long long)(w >> b));
-  if (b != 0 && wi + 1 < cap) {
-    const uint32_t lo = w << (32 - b);
-    if (lo) atomicOr(dst + wi + 1, (unsigned long long)lo);
+  const long long total = carry;             // the frame's bits
+  const long long cap_bits = 32LL * m.frame_cap;
+  int s = 0;
+  long long off = 0, n = m.frame_cap;        // store: every payload word
+  if (m.seq_bits != nullptr) {
+    const long long sb = *m.seq_bits;
+    s = (int)(sb & 31);
+    const long long last = m.out_words - m.frame_cap - 1;  // the window's last offset
+    off = min(sb >> 5, last);                // append_bitstring's clamp
+    n = (min(total + 31, cap_bits) + s + 31) >> 5;      // the words frame bits can reach
+  }
+  for (long long j = (long long)blockIdx.x * MERGE_THREADS + tid; j < n;
+       j += (long long)gridDim.x * MERGE_THREADS) {
+    const long long lo = 32 * j - s;         // this word holds frame bits lo .. lo + 31
+    int k = -1;                              // the last row that starts before lo + 32
+    for (int a = 0, b = m.r - 1; a <= b;) {
+      const int mid = (a + b) >> 1;
+      if (start[mid] < lo + 32) { k = mid; a = mid + 1; } else { b = mid - 1; }
+    }
+    uint32_t v = 0;
+    for (; k >= 0 && start[k + 1] > lo; k--) {
+      const long long q = lo - start[k];     // > -32: the word's first bit in row k
+      const int nw = (int)min((start[k + 1] - start[k] + 31) >> 5, (long long)m.c);
+      const int w0 = (int)(q >> 5), sh = (int)(q & 31);
+      const int64_t* row = m.words + (long long)k * m.c;
+      const uint32_t hi = w0 >= 0 && w0 < nw ? (uint32_t)row[w0] : 0u;
+      const uint32_t lw = w0 + 1 < nw ? (uint32_t)row[w0 + 1] : 0u;
+      v |= __funnelshift_l(lw, hi, sh);
+    }
+    const long long keep = cap_bits - lo;    // this word's bits before the cut at cap
+    if (keep < 32) v = keep > 0 ? v & ~(0xffffffffu >> keep) : 0u;
+    if (m.seq_bits == nullptr) {
+      m.out[j] = v;
+    } else if (v != 0) {
+      m.out[off + j] |= v;                   // the sequence's bits before the frame stay
+    }
+  }
+  if (blockIdx.x == 0 && tid == 0) {
+    *m.frame_bits = total;
+    if (m.seq_bits != nullptr) {
+      *m.seq_bits_out = *m.seq_bits + total;
+      *m.overflow = total > cap_bits;
+    }
   }
 }
 
@@ -270,13 +351,32 @@ extern "C" int mpeg2_pack_slots(const void* slots, void* words, void* bits,
   return (int)cudaGetLastError();
 }
 
+// merge_rows (seq_bits null: the (cap,) payload, every word written) or
+// merge_append (out the sequence of out_words words, ORed into from word
+// seq_bits >> 5; seq_bits_out and overflow written); frame_bits gets the
+// frame's bit count either way
 extern "C" int mpeg2_merge_rows(const void* words, const void* bits, void* out,
-                                int r, int c, int cap, void* stream) {
-  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)cap * sizeof(int64_t),
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(r, (c + 255) / 256);
-  merge_rows_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)words, (const int64_t*)bits, (int64_t*)out, c, cap);
+                                const void* seq_bits, void* seq_bits_out,
+                                void* frame_bits, void* overflow, int r, int c,
+                                int frame_cap, long long out_words, void* stream) {
+  if (r < 0 || r > MERGE_MAX_ROWS || frame_cap < 0 || frame_cap >= (1 << 26) ||
+      (seq_bits != nullptr && out_words < (long long)frame_cap + 1))
+    return (int)cudaErrorInvalidValue;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int words_max = frame_cap + (seq_bits != nullptr);
+  const int blocks = std::max(1, std::min((words_max + MERGE_THREADS - 1) / MERGE_THREADS,
+                                          MERGE_BLOCKS_PER_SM * sms));
+  const MergeArgs m{(const int64_t*)words, (const int64_t*)bits, (int64_t*)out,
+                    (const int64_t*)seq_bits, (int64_t*)seq_bits_out,
+                    (int64_t*)frame_bits, (bool*)overflow, r, c, frame_cap, out_words};
+  merge_rows_kernel<<<blocks, MERGE_THREADS, (r + 1) * sizeof(long long),
+                      (cudaStream_t)stream>>>(m);
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,9 @@ Pipeline per frame (all macroblocks batched):
   4:2:0 subsample -> motion-estimation kernel (search + prediction) -> transform kernel
   (residual, DCT, quantise, dequantise, IDCT, reconstruction) -> symbolisation
   (AC symbols through the acsym kernel) -> pack kernel (one bit-string per
-  slot row) -> merge kernel (one byte-aligned frame payload, GOP/picture
-  headers included) -> append to the sequence buffer.
+  slot row) -> merge kernel (the rows, GOP/picture headers included, merged
+  byte-aligned straight into the sequence buffer by the multi-frame path, or
+  into one frame payload by push_frame).
 The host only prepends the per-sequence header bytes and appends the end code.
 
 Every stage runs where its tensors lie: on a CUDA device the kernel wrappers
@@ -31,7 +32,7 @@ import torch
 
 from ..config import EncoderConfig, SequenceConfig
 from ..core.bitstream import BitWriter, SEQUENCE_END_CHUNKS, sequence_header_chunks
-from ..ops import bitpack, colorspace, entropy
+from ..ops import colorspace, entropy
 from ..ops.kernels import me as k_me
 from ..ops.kernels import pack as k_pack
 from ..ops.kernels import transform as k_transform
@@ -96,9 +97,10 @@ def encode_gop_scan_core(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
     the payload.  Returns (recon_y, recon_u, recon_v, seq_words, seq_bits,
     i_frame, frame_no, overflow, frame_bits (F,), frame_i_frames list)."""
     dev = frames_y.device
-    # guard margin per the append_bitstring sizing contract: the frame payload
-    # is frame_cap words, so seq_cap + frame_cap + 1 words always hold the
-    # append window; overflow is still checked against the logical seq_cap
+    # guard margin per the append_bitstring sizing contract (merge_append
+    # keeps it): the frame payload is frame_cap words, so seq_cap + frame_cap
+    # + 1 words always hold the append window; overflow is still checked
+    # against the logical seq_cap
     seq_w = torch.zeros(seq_cap + frame_cap + 1, dtype=torch.int64, device=dev)
     seq_b = torch.zeros((), dtype=torch.int64, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
@@ -106,11 +108,14 @@ def encode_gop_scan_core(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
     i_f, fno = i_frame0, frame_no0
     frame_bits, frame_ifs = [], []
     for k in range(frames_y.shape[0]):
-        ry, ru, rv, fw, fb, o = encode_frame_core(
+        ry, ru, rv, slots = symbolize_frame_core(
             frames_y[k], frames_u[k], frames_v[k], *prev, i_f, fno,
-            yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap)
-        seq_w, seq_b = bitpack.append_bitstring(seq_w, seq_b, fw, fb)
-        ovf = ovf | o
+            yr=yr, ur=ur, q_level=q_level)
+        row_words, row_bits, pack_ovf = k_pack.pack_slots(slots, row_cap)
+        # the frame's rows straight into the sequence buffer: one launch
+        seq_w, seq_b, fb, frame_ovf = k_pack.merge_append(seq_w, seq_b, row_words,
+                                                          row_bits, frame_cap)
+        ovf = ovf | pack_ovf | frame_ovf
         prev = (ry, ru, rv)
         frame_bits.append(fb)
         frame_ifs.append(i_f)

@@ -1,6 +1,7 @@
 """Parallel variable-length bit packing by prefix sum: the plain PyTorch
 versions of the pack and merge kernels (ops/kernels/pack.py) and of
-pack_symbols, plus the per-frame sequence append.
+pack_symbols, plus the per-frame sequence append (merge_append, the merge
+kernel's append mode, is merge_rows then append_bitstring).
 
 A bit-string is a row of 32-bit words, MSB first, left-justified and
 zero-filled beyond its length (so OR is concatenation), held as int64 values
@@ -95,6 +96,16 @@ def merge_rows(words: torch.Tensor, bits: torch.Tensor, cap_words: int
     return payload[0], bits.sum()
 
 
+def check_append_window(seq_words: int, c: int) -> None:
+    """Raise unless an accumulator of seq_words words can take a window of
+    c + 1 words (append_bitstring's sizing contract)."""
+    if c + 1 > seq_words:
+        raise ValueError(
+            f"append_bitstring accumulator ({seq_words} words) must "
+            f"exceed the appended width + 1 ({c} + 1); allocate "
+            f"seq_cap + C + 1 words (see sizing contract)")
+
+
 def append_bitstring(seq: torch.Tensor, seq_bits: torch.Tensor,
                      b: torch.Tensor, b_bits: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,11 +123,7 @@ def append_bitstring(seq: torch.Tensor, seq_bits: torch.Tensor,
     Without the margin the clamp bites BELOW the overflow threshold - in the
     worst case (C + 1 == buffer width) every append lands at word 0 and the
     corruption is silent - so undersized accumulators are rejected."""
-    if b.shape[-1] + 1 > seq.shape[-1]:
-        raise ValueError(
-            f"append_bitstring accumulator ({seq.shape[-1]} words) must "
-            f"exceed the appended width + 1 ({b.shape[-1]} + 1); allocate "
-            f"seq_cap + C + 1 words (see sizing contract)")
+    check_append_window(seq.shape[-1], b.shape[-1])
     c = b.shape[-1]
     s = seq_bits & 31
     zero = torch.zeros(1, dtype=torch.int64, device=b.device)
@@ -127,3 +134,15 @@ def append_bitstring(seq: torch.Tensor, seq_bits: torch.Tensor,
     idx = off + torch.arange(c + 1, device=seq.device)
     seq[idx] = seq[idx] | sh
     return seq, seq_bits + b_bits
+
+
+def merge_append(seq: torch.Tensor, seq_bits: torch.Tensor, words: torch.Tensor,
+                 bits: torch.Tensor, frame_cap: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the merge kernel's append mode: merge_rows(words,
+    bits, frame_cap) appended to seq by append_bitstring, in place.  Returns
+    (seq, the new seq_bits, the frame's bits, its overflow flag: bits beyond
+    32 * frame_cap, which the payload dropped)."""
+    payload, fbits = merge_rows(words, bits, frame_cap)
+    seq, seq_bits = append_bitstring(seq, seq_bits, payload, fbits)
+    return seq, seq_bits, fbits, fbits > 32 * frame_cap

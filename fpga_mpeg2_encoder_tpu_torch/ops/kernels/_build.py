@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.  pack_symbols has no kernel of its
-# own and no count: its launches are pack_slots'.
+# own and no count: its launches are pack_slots'.  merge_rows and
+# merge_append launch the one merge kernel and share its count.
 LAUNCHES: Dict[str, int] = {"transform": 0, "acsym": 0, "pack_slots": 0,
                             "merge_rows": 0, "me_fused": 0, "me_luma": 0,
                             "chroma_pred": 0}
@@ -45,7 +46,7 @@ _SIGNATURES = {
     "mpeg2_transform_stage": [_P] * 4 + [_I, _I, _I, _P],
     "mpeg2_acsym": [_P, _P, _P, _I, _I, _P],
     "mpeg2_pack_slots": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mpeg2_merge_rows": [_P, _P, _P, _I, _I, _I, _P],
+    "mpeg2_merge_rows": [_P] * 7 + [_I, _I, _I, ctypes.c_longlong, _P],
     "mpeg2_me_fused": [_P] * 10 + [_I] * 8 + [_P],
     "mpeg2_me_luma": [_P] * 6 + [_I] * 8 + [_P],
     "mpeg2_chroma_pred": [_P] * 7 + [_I] * 4 + [_P],

@@ -6,7 +6,9 @@ refinement, inter/intra decision and luma and chroma prediction.
   per frame;
 * motion_estimate replaces motion_estimate_pallas (the luma half);
 * chroma_pred replaces chroma_pred_pallas (the chroma half, from the mv and
-  inter maps in device memory).
+  inter maps in device memory): a kernel of its own, one warp per
+  macroblock, each lane forming 4 bytes of one row of U or V from aligned
+  4-byte loads (its planes must be 4-byte aligned).
 The JAX package reaches the last two only as a demotion rung; here they are
 public functions that are held against their plain versions and against
 the fused kernel, and the encoder never switches to them.
@@ -64,13 +66,15 @@ def _band(cur_y: torch.Tensor, yr: int, total_mb_rows: Optional[int]):
     return h // 16, w // 16, h // 16 if total_mb_rows is None else total_mb_rows
 
 
-def _check_planes(nby: int, nbx: int, halo: bool, luma=None, chroma=()):
+def _check_planes(nby: int, nbx: int, halo: bool, luma=None, chroma=(),
+                  chroma_align: int = 1):
     """Check the reference planes' shapes: nby*bs rows plus the halo rows."""
     if luma is not None:
         _build.check(luma, "prev_y", torch.uint8,
                      (nby * 16 + (16 if halo else 0), nbx * 16), align=8)
     for t, name in chroma:
-        _build.check(t, name, torch.uint8, (nby * 8 + (8 if halo else 0), nbx * 8))
+        _build.check(t, name, torch.uint8, (nby * 8 + (8 if halo else 0), nbx * 8),
+                     align=chroma_align)
 
 
 def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe: bool, yr: int,
@@ -136,7 +140,9 @@ def chroma_pred(prev_u, prev_v, inter, mvx, mvy, ur: int, halo: bool = False,
             prev_v = motion.pad_halo(prev_v, motion.CHROMA_HALO)
         pu, pv = motion.chroma_pred(prev_u, prev_v, inter, mvx, mvy, ur)
         return (motion.to_planes(pu), motion.to_planes(pv)) if as_plane else (pu, pv)
-    _check_planes(nby, nbx, halo, chroma=((prev_u, "prev_u"), (prev_v, "prev_v")))
+    # the kernel reads the planes in aligned 4-byte words
+    _check_planes(nby, nbx, halo, chroma=((prev_u, "prev_u"), (prev_v, "prev_v")),
+                  chroma_align=4)
     _build.check(inter, "inter", torch.bool, (nby, nbx))
     _build.check(mvx, "mvx", torch.int32, (nby, nbx))
     _build.check(mvy, "mvy", torch.int32, (nby, nbx))

@@ -4,6 +4,8 @@ pack_slots replaces ops/pallas/pack.py::pack_slots_pallas and merge_rows
 replaces ops/pallas/pack.py::merge_rows_pallas of the JAX package;
 pack_symbols replaces pack_symbols_pallas, which on the TPU as here forms the
 slots and calls the pack kernel, and launches nothing of its own.
+merge_append is merge_rows followed by bitpack.append_bitstring, the frame
+loop's per-frame append, in one launch of the same merge kernel.
 
 pack_slots is bound by reading the slots (at 1920x1152: 3.5 M int32 slots,
 14 MB) and writing the words.  Each row is cut into tiles of 4096 slots, one
@@ -14,8 +16,14 @@ chained scan (decoupled look-back), warp 0 reading 32 predecessors' status
 words at once.  Each output word is written
 once by a plain store.  The look-back's state lives in a buffer per device
 and stream, zeroed when it is allocated; the kernel's last block leaves it
-zeroed for the next call.  merge_rows OR-s each row word into one
-or two payload words with atomics, after one prefix sum of the row lengths.
+zeroed for the next call.  The merge kernel gives each output word one
+thread, in a fixed grid of two blocks per SM: every block scans the row
+lengths, and a thread finds the rows under its word by a binary search and
+funnel-shifts at most two words of each.  merge_rows stores every word of
+its (cap,) payload; merge_append ORs only the words under the frame's bits
+into the sequence buffer at the offset it reads on the device, and writes
+the new bit count to a tensor of its own: no memset, no atomics, no frame
+buffer and no host round trip.
 On CPU tensors the plain versions in ops/bitpack.py run instead.
 
 Unlike the JAX package there is no statistical level budget: a row overflows
@@ -77,16 +85,46 @@ def pack_symbols(codes: torch.Tensor, lens: torch.Tensor, cap_words: int
     return pack_slots(bitpack.symbol_slots(codes, lens), cap_words)
 
 
+def _merge_checks(words: torch.Tensor, bits: torch.Tensor):
+    """Check the rows' operands; the kernel refuses more than 4096 rows or a
+    cap of 2**26 words or more (a launch error)."""
+    r, c = words.shape
+    _build.check(words, "words", torch.int64, (r, c))
+    _build.check(bits, "bits", torch.int64, (r,))
+    return r, c
+
+
 def merge_rows(words: torch.Tensor, bits: torch.Tensor, cap_words: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """words (R, C) int64, bits (R,) int64 byte-aligned -> (payload
     (cap_words,) int64, total bits); see bitpack.merge_rows."""
     if _build.on_cpu(words, bits):
         return bitpack.merge_rows(words, bits, cap_words)
-    r, c = words.shape
-    _build.check(words, "words", torch.int64, (r, c))
-    _build.check(bits, "bits", torch.int64, (r,))
+    r, c = _merge_checks(words, bits)
     out = torch.empty((cap_words,), dtype=torch.int64, device=words.device)
-    _build.launch("mpeg2_merge_rows", "merge_rows", words.device,
-                  words, bits, out, r, c, cap_words)
-    return out, bits.sum()
+    total = torch.empty((), dtype=torch.int64, device=words.device)
+    _build.launch("mpeg2_merge_rows", "merge_rows", words.device, words, bits, out,
+                  None, None, total, None, r, c, cap_words, cap_words)
+    return out, total
+
+
+def merge_append(seq: torch.Tensor, seq_bits: torch.Tensor, words: torch.Tensor,
+                 bits: torch.Tensor, frame_cap: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """merge_rows(words, bits, frame_cap) appended to the sequence buffer seq
+    (N,) int64 at seq_bits () int64, in place, with append_bitstring's
+    sizing contract and clamp -> (seq, new seq_bits, frame bits, overflow
+    () bool: frame bits beyond 32 * frame_cap); see bitpack.merge_append."""
+    if _build.on_cpu(seq, seq_bits, words, bits):
+        return bitpack.merge_append(seq, seq_bits, words, bits, frame_cap)
+    r, c = _merge_checks(words, bits)
+    _build.check(seq, "seq", torch.int64, (seq.numel(),))
+    _build.check(seq_bits, "seq_bits", torch.int64, ())
+    bitpack.check_append_window(seq.numel(), frame_cap)
+    dev = words.device
+    new_bits = torch.empty((), dtype=torch.int64, device=dev)
+    fbits = torch.empty((), dtype=torch.int64, device=dev)
+    ovf = torch.empty((), dtype=torch.bool, device=dev)
+    _build.launch("mpeg2_merge_rows", "merge_rows", dev, words, bits, seq, seq_bits,
+                  new_bits, fbits, ovf, r, c, frame_cap, seq.numel())
+    return seq, new_bits, fbits, ovf

@@ -70,6 +70,20 @@ MUTANTS = {
         ("chroma_half_flag", "hx = (mvx >> 1) & 1;", "hx = (mvx / 2) & 1;"),
         ("chroma_rounding", "if (hy && hx) v = (1 + a + b + cc + d) >> 2;",
          "if (hy && hx) v = (a + b + cc + d) >> 2;"),
+        # chroma_pred_kernel's own code (one warp per macroblock); the
+        # chroma_* mutants above break the fused kernel's chroma_predict
+        ("chroma_warp_funnel_edge", "b = __funnelshift_rc(w0, w1, sh + 8);",
+         "b = __funnelshift_r(w0, w1, sh + 8);"),
+        ("chroma_warp_zero", "wc4 + w) : 0u;", "wc4 + w) : 0x80808080u;"),
+        ("chroma_warp_avg2", "else if (hx) v = __vavgu4(a, b);",
+         "else if (hx) v = __vhaddu4(a, b);"),
+        ("chroma_warp_avg4_rounding", "(d & m) + 0x00010001u;", "(d & m);"),
+        ("chroma_warp_avg4_twice", "if (hx && hy) v = avg4(a, b, c, d);",
+         "if (hx && hy) v = __vavgu4(__vavgu4(a, b), __vavgu4(c, d));"),
+        ("chroma_warp_shift", "(m_x >> 2) + 4 * half", "(m_x / 4) + 4 * half"),
+        ("chroma_warp_halo", "(m_y >> 2) + r + halo_rows", "(m_y >> 2) + r"),
+        ("chroma_warp_store", "(size_t)mb * 64 + r * 8 + 4 * half",
+         "(size_t)mb * 64 + (r ^ 1) * 8 + 4 * half"),
     ]),
     "transform.cu": ("transform", [
         ("fdct_wrap17", "f[u] = ((acc & 0x1FFFF) ^ 0x10000) - 0x10000;", "f[u] = acc;"),
@@ -132,6 +146,14 @@ MUTANTS = {
         ("cap_test", "const int w1 = min(cap, last ?", "const int w1 = (last ?"),
         ("zero_fill_cap", "w < cap; w += PACK_THREADS) out[w] = 0;",
          "w < cap - 1; w += PACK_THREADS) out[w] = 0;"),
+        # the merge kernel (merge_rows and merge_append)
+        ("merge_row_scan", "if (i < m.r) start[i + 1] = before + x;",
+         "if (i < m.r) start[i + 1] = before + x - own;"),
+        ("merge_row_words", "(long long)m.c);", "(long long)m.c + 1);"),
+        ("merge_seq_residue", "s = (int)(sb & 31);", "s = (int)(sb & 15);"),
+        ("merge_first_word_or", "m.out[off + j] |= v;", "m.out[off + j] = v;"),
+        ("merge_cap_cut", "if (keep < 32) v = keep > 0", "if (keep < 0) v = keep > 0"),
+        ("merge_clamp", "off = min(sb >> 5, last);", "off = (sb >> 5) % (last + 1);"),
         # A status word carries its data with its state in one 64-bit store,
         # so a publish needs no fence.  The last block's wait for each
         # inclusive publish before it clears the word has no mutant: without

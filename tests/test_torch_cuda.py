@@ -28,6 +28,7 @@ from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
+from fpga_mpeg2_encoder_tpu_torch.utils.testdata import chroma_maps, random_sequence
 
 pytestmark = pytest.mark.cuda
 MAIN_PATH = ("me_fused", "transform", "acsym", "pack_slots", "merge_rows")
@@ -265,16 +266,22 @@ def _edge_rows(dev, r, s, seed):
     return torch.as_tensor((codes | lens << 27).astype(np.uint32).view(np.int32), device=dev)
 
 
-@pytest.mark.parametrize("kind", ["one-bit", "five-bit", "edges", "zero-rows", "worst"])
+@pytest.mark.parametrize("kind", ["one-bit", "five-bit", "edges", "zero-rows", "worst",
+                                  "one-bit-waves"])
 def test_pack_slots_look_back(dev, kind):
     """The chained scan across tiles: tiles of 1 or 5 bits that share words,
     chains of aggregates whose 32-bit window spans many tiles; symbols that
     straddle words at tile edges; all-zero tiles and rows between full ones;
-    the worst case, every slot 24 bits.  Caps cut the longest row in its
-    last word, the word before, and mid-row; a second call on other operands follows at
-    once, so one call's look-back state cannot leak into the next."""
+    the worst case, every slot 24 bits; a row of 1-bit tiles several waves
+    long, whose later tiles find their predecessors' inclusive carries
+    published (each carry must hold 32 bits of earlier tiles).  Caps cut the
+    longest row in its last word, the word before, and mid-row; a second
+    call on other operands follows at once, so one call's look-back state
+    cannot leak into the next."""
     s = 20 * TILE + 7
-    if kind in ("one-bit", "five-bit"):
+    if kind == "one-bit-waves":
+        slots = _sparse_rows(dev, 1, 1600 * TILE + 5, (1, 1), 6)
+    elif kind in ("one-bit", "five-bit"):
         slots = _sparse_rows(dev, 4, s, (1, 1) if kind == "one-bit" else (0b10110, 5), 1)
     elif kind == "edges":
         slots = _edge_rows(dev, 4, s, 2)
@@ -310,6 +317,89 @@ def test_pack_and_merge_kernels_equal_plain(dev, r, s, cap):
         mw, mb = _launched("merge_rows", lambda: k_pack.merge_rows(words, bits, frame_cap))
         pw, pb = bitpack.merge_rows(words, bits, frame_cap)
         assert torch.equal(mw, pw) and int(mb) == int(pb)
+
+
+def _merge_rows_np(rng, r, c, over=()):
+    """Rows for the merge: byte-aligned bit counts (rows 0 and r // 2 empty),
+    zero past each count; rows in ``over`` overflowed their c words (more
+    bits than the words hold, as pack_slots reports them)."""
+    bits = rng.integers(0, c * 4 + 1, r).astype(np.int64) * 8
+    bits[[0, r // 2]] = 0
+    bits[list(over)] = 32 * c + 40
+    words = rng.integers(0, 1 << 32, (r, c), dtype=np.uint64).astype(np.int64)
+    for k in range(r):
+        nw, rem = divmod(int(bits[k]), 32)
+        if nw < c:
+            words[k, nw + (rem > 0):] = 0
+            if rem:
+                words[k, nw] &= (0xFFFFFFFF << (32 - rem)) & 0xFFFFFFFF
+    return words, bits
+
+
+@pytest.mark.parametrize("case", ["fits", "cut", "clamp", "rows-over-cap", "tiny-cap"])
+def test_pack_merge_append_kernel_equals_plain(dev, case):
+    """merge_append (the merge kernel's append mode) against
+    bitpack.merge_append at every seq_bits & 31: the bits before seq_bits
+    stay; frames cut at frame_cap, with the overflow flag; the window's
+    offset clamped to the buffer's end (at several distances past it); rows
+    that overflowed their words; caps of 0 and 1 words.  merge_rows (the
+    store mode) on the same rows."""
+    rng = np.random.default_rng(len(case))
+    r, c = (300, 3) if case == "tiny-cap" else (9, 40)
+    words, bits = _merge_rows_np(rng, r, c, over=(2, 5) if case == "rows-over-cap" else ())
+    total = int(bits.sum())
+    caps = {"fits": (r * c,), "cut": (total // 32 - 5, total // 64), "clamp": (r * c,),
+            "rows-over-cap": (r * c, total // 32 - 1), "tiny-cap": (0, 1)}[case]
+    w_d, b_d = torch.as_tensor(words, device=dev), torch.as_tensor(bits, device=dev)
+    for frame_cap in caps:
+        got = _launched("merge_rows", lambda: k_pack.merge_rows(w_d, b_d, frame_cap))
+        want = bitpack.merge_rows(w_d, b_d, frame_cap)
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1]) == total
+        for residue in range(32):
+            for past in ((3, 17) if case == "clamp" else (0,)):
+                seq_bits = 32 * (4 + past + residue % 5) + residue
+                n_words = frame_cap + 1 + (4 if case == "clamp" else 60)
+                seq = torch.as_tensor(random_sequence(rng, n_words, seq_bits), device=dev)
+                sb = torch.tensor(seq_bits, device=dev)
+                got = _launched("merge_rows", lambda: k_pack.merge_append(
+                    seq.clone(), sb, w_d, b_d, frame_cap))
+                want = bitpack.merge_append(seq.clone(), sb, w_d, b_d, frame_cap)
+                assert [g.dtype for g in got] == [w.dtype for w in want]
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (frame_cap, residue, past)
+                assert bool(got[3]) == (total > 32 * frame_cap)
+                assert int(sb) == seq_bits          # seq_bits is not updated in place
+
+
+def test_pack_merge_append_sequence_of_frames(dev):
+    """Frames of real packed rows appended back to back, each at the bit
+    count the previous call left on the card: the same buffer and counts as
+    the plain version's chain."""
+    seq_k = torch.zeros(20000, dtype=torch.int64, device=dev)
+    seq_p = seq_k.clone()
+    sb_k = sb_p = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(6):
+        slots = _slots(dev, 5, 3 + 394 * 4, 100 + k, density=0.05)
+        w, b, _ = k_pack.pack_slots(slots, 512)
+        seq_k, sb_k, fb_k, _ = _launched("merge_rows", lambda: k_pack.merge_append(
+            seq_k, sb_k, w, b, 2048))
+        seq_p, sb_p, fb_p, _ = bitpack.merge_append(seq_p, sb_p, w, b, 2048)
+        assert int(fb_k) == int(fb_p) and int(sb_k) == int(sb_p)
+    assert torch.equal(seq_k, seq_p)
+
+
+def test_pack_merge_wrappers_check_inputs(dev):
+    words = torch.zeros((4, 8), dtype=torch.int64, device=dev)
+    bits = torch.zeros(4, dtype=torch.int64, device=dev)
+    sb = torch.zeros((), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="sizing contract"):
+        k_pack.merge_append(torch.zeros(32, dtype=torch.int64, device=dev), sb, words, bits, 32)
+    with pytest.raises(TypeError, match="dtype"):
+        k_pack.merge_append(torch.zeros(64, dtype=torch.int64, device=dev), sb.int(), words,
+                            bits, 32)
+    with pytest.raises(RuntimeError, match="mpeg2_merge_rows"):     # over 4096 rows
+        k_pack.merge_rows(torch.zeros((5000, 1), dtype=torch.int64, device=dev),
+                          torch.zeros(5000, dtype=torch.int64, device=dev), 8)
 
 
 def test_pack_symbols_wrapper_equals_plain(dev):
@@ -412,6 +502,33 @@ def test_me_kernels_equal_plain(dev, w, h, vl, kind):
                             device=dev)
     got = _launched("chroma_pred", lambda: k_me.chroma_pred(pu, pv, mixed, *fused[1:3], ur))
     _equal(got, motion.chroma_pred(*halos[1:], mixed, *fused[1:3], ur))
+
+
+@pytest.mark.parametrize("nby,nbx", [(4, 5), (3, 27), (2, 120)])
+@pytest.mark.parametrize("vl", [1, 3])
+def test_me_chroma_kernel_edges_and_ranges(dev, nby, nbx, vl):
+    """The chroma kernel against its plain version on maps with every (hx,
+    hy) and vectors out to +-(2 * yr + 1) half-pels, the edge macroblocks
+    pointing out of the plane: tiles and planes, whole planes and bands
+    (whose halo rows hold data); odd nbx and nbx >= 26."""
+    ur = vl
+    yr = 2 * ur
+    rng = np.random.default_rng(nbx + vl)
+    maps = tuple(torch.as_tensor(m, device=dev)
+                 for m in chroma_maps(nby, nbx, -(2 * yr + 1), 2 * yr + 1, nbx * vl))
+    for halo in (False, True):
+        pu, pv = (torch.as_tensor(rng.integers(0, 256, (nby * 8 + 8 * halo, nbx * 8),
+                                               dtype=np.uint8), device=dev) for _ in range(2))
+        hu, hv = (pu, pv) if halo else (motion.pad_halo(pu, 4), motion.pad_halo(pv, 4))
+        want = motion.chroma_pred(hu, hv, *maps, ur)
+        for as_plane in (False, True):
+            got = _launched("chroma_pred", lambda: k_me.chroma_pred(
+                pu, pv, *maps, ur, halo=halo, as_plane=as_plane))
+            _equal(got, tuple(map(motion.to_planes, want)) if as_plane else want)
+    # the kernel reads 4-byte words: planes must be 4-byte aligned
+    odd = torch.zeros(nby * 64 * nbx + 1, dtype=torch.uint8, device=dev)[1:].view(nby * 8, -1)
+    with pytest.raises(ValueError, match="aligned"):
+        k_me.chroma_pred(odd, odd, *maps, ur)
 
 
 @pytest.mark.parametrize("vl", [1, 3])

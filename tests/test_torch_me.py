@@ -22,6 +22,7 @@ from fpga_mpeg2_encoder_tpu.ops.pallas import me as jk_me
 from fpga_mpeg2_encoder_tpu_torch.ops import motion
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
+from fpga_mpeg2_encoder_tpu_torch.utils.testdata import chroma_maps
 
 _jax_whole = jax.jit(jmotion.estimate_and_predict, static_argnums=(7, 8))
 
@@ -246,3 +247,29 @@ def test_predictions_are_uint8(halo, as_plane):
         for a, b in zip(fused, plain):
             assert torch.equal(a, b)
         assert is_i or plain.inter.any()
+
+
+@pytest.mark.parametrize("halo,as_plane", [(False, False), (False, True), (True, False),
+                                           (True, True)])
+def test_chroma_pred_edges_match_jax_kernel_interpreted(interpret_me, halo, as_plane):
+    """The chroma half (plain version, and the wrapper on CPU tensors)
+    against the JAX package's chroma kernel in the Pallas interpreter, at
+    4x5 macroblocks (odd nbx): random maps with every (hx, hy) and vectors
+    from -2*yr to 2*yr + 1 half-pels, the edge macroblocks pointing out of
+    the plane (zero columns and rows, or the band's halo rows).  The JAX
+    kernel's window holds mv >> 2 in [-ur, ur] (the search gives |mv| <=
+    2*yr); the card's tests take the range out to -(2*yr + 1)."""
+    ur, yr, nby, nbx = 3, 6, 4, 5
+    rng = np.random.default_rng(5)
+    pu, pv = (rng.integers(0, 256, (nby * 8 + 8 * halo, nbx * 8), dtype=np.uint8)
+              for _ in range(2))
+    maps = chroma_maps(nby, nbx, -2 * yr, 2 * yr + 1, 7)
+    want = jk_me.chroma_pred_pallas(*(jnp.asarray(a) for a in (pu, pv) + maps), ur,
+                                    halo=halo, as_plane=as_plane)
+    args = _t(pu, pv, *maps)
+    got = k_me.chroma_pred(*args, ur, halo=halo, as_plane=as_plane)
+    _assert_equal(got, want)
+    hu, hv = args[:2] if halo else (motion.pad_halo(args[0], 4), motion.pad_halo(args[1], 4))
+    plain = motion.chroma_pred(hu, hv, *args[2:], ur)
+    _assert_equal(tuple(map(motion.to_planes, plain)) if as_plane else plain, want)
+    assert all(g.dtype == torch.uint8 for g in got)

@@ -17,6 +17,7 @@ from fpga_mpeg2_encoder_tpu.ops.pallas import pack as k_pack
 from fpga_mpeg2_encoder_tpu_torch.ops import bitpack
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as port_kernel
+from fpga_mpeg2_encoder_tpu_torch.utils.testdata import random_sequence
 
 
 @pytest.fixture
@@ -182,3 +183,55 @@ def test_append_bitstring_sizing_contract_and_offsets():
     want, wb = bitpack.merge_rows(torch.from_numpy(words), torch.from_numpy(bits), 6 * 16)
     assert int(sb) == int(wb)
     assert torch.equal(seq[:6 * 16], want)
+
+
+_jmerge = jax.jit(jbitpack.merge_rows, static_argnums=2)
+_jappend = jax.jit(jbitpack.append_bitstring)
+
+
+@pytest.mark.parametrize("residue", [0, 1, 7, 8, 31])
+@pytest.mark.parametrize("case", ["zero-rows", "cut", "clamp"])
+def test_merge_append_matches_jax(case, residue):
+    """bitpack.merge_append (the merge kernel's plain version, and the
+    wrapper on CPU tensors) against the JAX package's merge_rows followed by
+    append_bitstring, both jitted: rows of 0 bits among the rows; a frame cut
+    at frame_cap (its overflow flag set); the window's offset clamped to the
+    buffer's end.  The bits before seq_bits stay, at every residue."""
+    words, bits = _rows(6, 16, 7)
+    bits[[1, 4]] = 0
+    words[[1, 4]] = 0
+    total = int(bits.sum())
+    frame_cap = total // 32 - 3 if case == "cut" else 6 * 16
+    seq_bits = 32 * (9 if case == "clamp" else 3) + residue
+    n_words = frame_cap + 1 + (2 if case == "clamp" else 40)
+    seq = random_sequence(np.random.default_rng(residue), n_words, seq_bits)
+    jw, jb = _jmerge(jnp.asarray(words.astype(np.uint32)), jnp.asarray(bits.astype(np.int32)),
+                     frame_cap)
+    want_seq, want_bits = _jappend(jnp.asarray(seq.astype(np.uint32)), jnp.int32(seq_bits),
+                                   jw, jb)
+    for fn in (bitpack.merge_append, port_kernel.merge_append):
+        got = fn(torch.from_numpy(seq.copy()), torch.tensor(seq_bits), torch.from_numpy(words),
+                 torch.from_numpy(bits), frame_cap)
+        assert np.array_equal(got[0].numpy(), np.asarray(want_seq).astype(np.int64))
+        assert int(got[1]) == int(want_bits) == seq_bits + total
+        assert int(got[2]) == int(jb) == total
+        assert bool(got[3]) == (case == "cut")
+    assert bool(np.asarray(want_seq)[:seq_bits // 32].any())
+
+
+def test_merge_append_wrapper_on_cpu_and_sizing_contract():
+    """On CPU tensors merge_append runs its plain version (no launch); a
+    buffer that cannot take the frame_cap + 1 word window is refused, on
+    either path."""
+    words, bits = _rows(4, 8, 3)
+    before = dict(_build.LAUNCHES)
+    seq = torch.zeros(4 * 8 + 1, dtype=torch.int64)
+    got = port_kernel.merge_append(seq, torch.tensor(5), torch.from_numpy(words),
+                                   torch.from_numpy(bits), 4 * 8)
+    assert _build.LAUNCHES == before and got[0] is seq
+    with pytest.raises(ValueError, match="sizing contract"):
+        port_kernel.merge_append(torch.zeros(4 * 8, dtype=torch.int64), torch.tensor(0),
+                                 torch.from_numpy(words), torch.from_numpy(bits), 4 * 8)
+    with pytest.raises(ValueError, match="several devices"):
+        port_kernel.merge_append(seq, torch.tensor(0), torch.from_numpy(words),
+                                 torch.from_numpy(bits).to("meta"), 4 * 8)
