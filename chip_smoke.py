@@ -31,14 +31,41 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    (a) must run no plain append: the merge kernel appends each frame;
 6. profile: 16 frames of the main path under torch.profiler: kernels
    launched and device time per frame, the device's idle share, and the
-   kernels that take the most time.
-The last lines are a JSON summary of the kernels, the card and the device line.
+   kernels that take the most time;
+7. multi-stream (BASELINE config 5's shape): parallel/dp.py's BatchEncoder,
+   8 streams of 1920x1152 (bench.py's frames rolled by 3 a stream), vl=3
+   q=2, pframes_count=23, 24 frames each in one push_chunks; each stream
+   must equal the card's Encoder.encode of its frames, and each main-path
+   kernel must be launched at least 8 times a frame; prints the batch's
+   aggregate MPixels/s through push_chunks (upload included) and of its
+   frame loop alone with the frames on the card, with the loop's kernels
+   and device time a stream-frame and the device's idle share
+   (informational);
+8. slice shards on one card, in one process: parallel/spatial.py's
+   local_step for 4 shards of 1920x1152 (18 macroblock rows each), halos
+   cut from the whole recon, then the frame tail (header rows packed, rows
+   merged), 8 frames IPPP; payload bits, words and recon must equal
+   encode_frame_core's on every frame, with the motion kernel launched in
+   its band form at first_mb_row 18, 36 and 54.  With two cards or more the
+   same frames also go through make_sharded_frame_encoder over NCCL on
+   min(4, cards) ranks; with one card a line says that part was not run;
+9. command line: a 416x64 and a 1920x1152 clip (4 frames each) through
+   `python -m fpga_mpeg2_encoder_tpu_torch.cli.encode --device cuda` in a
+   subprocess (bytes equal to Encoder.encode at the default caps in this
+   process; each main-path kernel launched there exactly once a frame: the
+   CLI's caps are the analytic bounds, so no frame is encoded twice), then `cli.decode --validate --ref` (its main, in this
+   process) on the 416x64 stream: the validator passes, PSNR-Y printed.
+Then the seconds each phase took, and, as the last lines, a JSON summary of
+the kernels, the card and the device line.
 """
+import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -142,8 +169,73 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def sharded_rank(rank, world, init, backend, out, nf):
+    """One rank of phase 8's multi-card part: make_sharded_frame_encoder over
+    ``backend`` on ``world`` ranks, nf frames IPPP of bench.py's content;
+    saves this rank's recon rows and (rank 0) each frame's payload."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from bench import make_frames
+    from fpga_mpeg2_encoder_tpu_torch import EncoderConfig
+    from fpga_mpeg2_encoder_tpu_torch.parallel.mesh import local_range, make_mesh
+    from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import make_sharded_frame_encoder
+
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    try:
+        device = "cuda" if backend == "nccl" else "cpu"
+        mesh = make_mesh(world, axis="slice", device=device)
+        dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else "cpu"
+        cfg = EncoderConfig(xl=7, yl=7, vector_level=3, q_level=2)    # main()'s
+        enc = make_sharded_frame_encoder(mesh, H, W, yr=cfg.yr, ur=cfg.ur,
+                                         q_level=cfg.q_level, **CAPS)
+        rows = local_range(H // 16, mesh, "slice")
+        ly = slice(16 * rows.start, 16 * rows.stop)
+        prev = (torch.zeros((16 * len(rows), W), dtype=torch.uint8, device=dev),
+                torch.zeros((8 * len(rows), W // 2), dtype=torch.uint8, device=dev),
+                torch.zeros((8 * len(rows), W // 2), dtype=torch.uint8, device=dev))
+        res = {"rows": np.array([rows.start, rows.stop])}
+        for fi, f in enumerate(make_frames(W, H, nf)):
+            planes = [torch.as_tensor(np.ascontiguousarray(p[ly]), device=dev) for p in f]
+            ry, ru, rv, fw, fb, ovf = enc(*planes, *prev, fi, fi)
+            nw = (int(fb) + 31) // 32
+            res.update({f"y{fi}": ry.cpu().numpy(), f"u{fi}": ru.cpu().numpy(),
+                        f"v{fi}": rv.cpu().numpy(), f"bits{fi}": np.int64(fb),
+                        f"words{fi}": fw[:nw].cpu().numpy(), f"ovf{fi}": np.bool_(ovf)})
+            prev = (ry, ru, rv)
+        np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded_ranks(world, backend, nf, timeout=600):
+    """Phase 8's ranks in spawned processes (a file store in a temporary
+    directory) -> each rank's saved arrays."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as out:
+        init = "file://" + os.path.join(out, "rendezvous")
+        ctx = mp.start_processes(sharded_rank, args=(world, init, backend, out, nf),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"phase 8: {world} ranks still running after {timeout} s")
+        res = []
+        for r in range(world):
+            with np.load(os.path.join(out, f"rank{r}.npz")) as f:
+                res.append(dict(f))
+        return res
+
+
 def main():
     import torch
+
+    starts = {1: time.perf_counter()}      # phase -> its start on the host clock
 
     # ---- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -184,6 +276,7 @@ def main():
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
     # ---- 2. build ---------------------------------------------------------------
+    starts[2] = time.perf_counter()
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
@@ -204,6 +297,7 @@ def main():
           flush=True)
 
     # ---- 3. kernels against their plain versions --------------------------------
+    starts[3] = time.perf_counter()
     cfg = EncoderConfig(xl=7, yl=7, vector_level=3, q_level=2)
     yr, ur = cfg.yr, cfg.ur
     timing = {}
@@ -359,6 +453,7 @@ def main():
             print(f"3 kernel {kname:12s} {w}x{h} {label:18s} exact{times}", flush=True)
 
     # ---- 4. stages of one 1920x1152 P-frame -----------------------------------
+    starts[4] = time.perf_counter()
     frames = make_frames(W, H, NF)
     fy, fu, fv = (torch.as_tensor(np.stack([f[i] for f in frames]), device=dev)
                   for i in range(3))
@@ -395,6 +490,7 @@ def main():
           + ", ".join(f"{k} {v:.4f}" for k, v in st.items()), flush=True)
 
     # ---- 5. end to end ---------------------------------------------------------
+    starts[5] = time.perf_counter()
     zy = torch.zeros((H, W), dtype=torch.uint8, device=dev)
     zc = torch.zeros((H // 2, W // 2), dtype=torch.uint8, device=dev)
 
@@ -467,6 +563,7 @@ def main():
           f"the 1080p soak digest, structure ok, launches {launches_b}", flush=True)
 
     # ---- 6. profile of the main path --------------------------------------------
+    starts[6] = time.perf_counter()
     npf = 16
     wall = min(cuda_ms(lambda: run_a(npf), reps=1, warmup=1) for _ in range(3)) / npf
     ev = profile_events(lambda: run_a(npf), 1)
@@ -481,6 +578,192 @@ def main():
           f"profiler: device idle {100 * (1 - busy / wall):.1f}%", flush=True)
     for n, (cnt, t) in top:
         print(f"  {t / npf:.4f} ms/frame  {cnt / npf:.1f} launches/frame  {n[:90]}")
+
+    # ---- 7. multi-stream: 8 x 1080p through BatchEncoder ----------------------
+    starts[7] = time.perf_counter()
+    from fpga_mpeg2_encoder_tpu_torch import SequenceConfig
+    from fpga_mpeg2_encoder_tpu_torch.parallel.dp import BatchEncoder, encode_gops_batched
+
+    ns, nf7 = 8, 24
+    chunks = [[frames[(k + 3 * b) % NF] for k in range(nf7)] for b in range(ns)]
+    be = BatchEncoder(cfg, SequenceConfig(W, H, 23), ns, device="cuda", **CAPS)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    be.push_chunks(chunks)
+    torch.cuda.synchronize()
+    t_push = time.perf_counter() - t0
+    launches7 = dict(_build.LAUNCHES)
+    low = {k: launches7[k] for k in MAIN_PATH if launches7[k] < ns * nf7}
+    if low or launches7["me_luma"] or launches7["chroma_pred"]:
+        raise AssertionError(f"7: launches {launches7}: need >= {ns * nf7} of each "
+                             f"main-path kernel and no split motion kernel")
+    streams7 = be.finish()
+    t_single = time.perf_counter()
+    for b in range(ns):
+        single = Encoder(cfg, device="cuda", **CAPS).encode(chunks[b], W, H, 23,
+                                                           chunk_frames=nf7)
+        if streams7[b] != single:
+            raise AssertionError(f"7: stream {b} != Encoder.encode of its frames")
+    t_single = time.perf_counter() - t_single
+    # the batch's frame loop alone, its frames already on the card
+    stacks = [torch.as_tensor(np.stack([np.stack([f[i] for f in c]) for c in chunks]),
+                              device=dev) for i in range(3)]
+    zb = torch.zeros((ns, H, W), dtype=torch.uint8, device=dev)
+    zbc = torch.zeros((ns, H // 2, W // 2), dtype=torch.uint8, device=dev)
+
+    def batch_loop(nf=nf7):
+        return encode_gops_batched(*(t[:, :nf] for t in stacks), zb, zbc, zbc, [0] * ns,
+                                   [0] * ns, 23, **kw, **CAPS,
+                                   seq_cap=CAPS["frame_cap"] * max(1, nf // 4))
+
+    loop_ms = cuda_ms(batch_loop, reps=1, warmup=1)
+    # the profiler's cost grows with its events: profile 4 frames a stream,
+    # against the same window's time without it
+    npf7 = 4
+    window_ms = cuda_ms(lambda: batch_loop(npf7), reps=1, warmup=0)
+    ev = profile_events(lambda: batch_loop(npf7), 1)
+    busy7 = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    del stacks
+    pix7 = ns * nf7 * W * H
+    print(f"7 BatchEncoder {ns} x {W}x{H} x {nf7} frames: each stream equals Encoder.encode; "
+          f"launches {launches7}; push_chunks (host stacking, upload, loop, download) "
+          f"{t_push * 1e3:.1f} ms = {pix7 / t_push / 1e6:.1f} MPixels/s aggregate; the frame "
+          f"loop alone (encode_gops_batched, frames on the card) {loop_ms:.1f} ms = "
+          f"{pix7 / (loop_ms / 1e3) / 1e6:.1f} MPixels/s; {npf7} frames a stream under the "
+          f"profiler: {len(ev) / (ns * npf7):.1f} kernels and {busy7 / (ns * npf7):.4f} ms of "
+          f"device time a stream-frame, {window_ms:.1f} ms without it: device idle "
+          f"{100 * (1 - busy7 / window_ms):.1f}%; the {ns} single-stream encodes took "
+          f"{t_single:.1f} s; on {smi}", flush=True)
+
+    # ---- 8. slice shards on one card ----------------------------------------------
+    starts[8] = time.perf_counter()
+    from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import (
+        band_with_halo, frame_tail, make_local_step)
+
+    nsh, nf8 = 4, 8
+    rows8 = H // 16 // nsh
+    step = make_local_step(H // 16, yr=yr, ur=ur, q_level=cfg.q_level, row_cap=CAPS["row_cap"])
+    bands = []
+    fused = k_me.motion_estimate_fused
+
+    def recording_fused(*args, **kwargs):
+        bands.append((kwargs.get("halo", False), args[7] if len(args) > 7 else 0))
+        return fused(*args, **kwargs)
+
+    prev = (zy, zc, zc)
+    sharded = []
+    _build.reset_launches()
+    k_me.motion_estimate_fused = recording_fused
+    try:
+        for fi in range(nf8):
+            planes = (fy[fi], fu[fi], fv[fi])
+            outs = []
+            for k in range(nsh):
+                a, b = 16 * rows8 * k, 16 * rows8 * (k + 1)
+                outs.append(step(*(p[a:b] for p in planes),
+                                 band_with_halo(prev[0], motion.LUMA_HALO, a, b),
+                                 band_with_halo(prev[1], motion.CHROMA_HALO, a // 2, b // 2),
+                                 band_with_halo(prev[2], motion.CHROMA_HALO, a // 2, b // 2),
+                                 fi, fi, rows8 * k))
+            ry, ru, rv, words, bits = (torch.cat([o[i] for o in outs]) for i in range(5))
+            ovf = torch.stack([o[5] for o in outs]).any()
+            sharded.append(((ry, ru, rv), *frame_tail(words, bits, ovf, fi, fi, **CAPS)))
+            prev = (ry, ru, rv)
+        torch.cuda.synchronize()
+    finally:
+        k_me.motion_estimate_fused = fused
+    launches8 = dict(_build.LAUNCHES)
+    want8 = {"me_fused": nsh * nf8, "transform": nsh * nf8, "acsym": nsh * nf8,
+             "pack_slots": (nsh + 1) * nf8, "merge_rows": nf8}
+    if any(launches8[k] != n for k, n in want8.items()):
+        raise AssertionError(f"8: launches {launches8}, expected {want8}")
+    firsts = sorted({r for halo, r in bands if halo})
+    if len(bands) != nsh * nf8 or firsts != [rows8 * k for k in range(nsh)]:
+        raise AssertionError(f"8: motion kernel calls (halo, first_mb_row) {bands}")
+    prev = (zy, zc, zc)
+    want_frames = []
+    for fi in range(nf8):
+        ry, ru, rv, fw, fb, ovf = M.encode_frame_core(fy[fi], fu[fi], fv[fi], *prev, fi, fi,
+                                                      **kw, **CAPS)
+        (sy, su, sv), sw, sb, sovf = sharded[fi]
+        nw = (int(fb) + 31) // 32
+        if bool(ovf) or bool(sovf) or int(sb) != int(fb) or not torch.equal(sw[:nw], fw[:nw]):
+            raise AssertionError(f"8: frame {fi}: sharded payload != encode_frame_core's")
+        if not (torch.equal(sy, ry) and torch.equal(su, ru) and torch.equal(sv, rv)):
+            raise AssertionError(f"8: frame {fi}: sharded recon != encode_frame_core's")
+        want_frames.append((int(fb), fw[:nw].cpu().numpy(),
+                            tuple(p.cpu().numpy() for p in (ry, ru, rv))))
+        prev = (ry, ru, rv)
+    print(f"8 slice shards: {nsh} x {rows8} macroblock rows of {W}x{H}, {nf8} frames IPPP: "
+          f"payload and recon equal encode_frame_core on every frame; motion kernel in its "
+          f"band form at first_mb_row {firsts}; kernels a frame "
+          f"{ {k: v / nf8 for k, v in launches8.items() if v} }", flush=True)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        world = min(4, n_cards)
+        res = run_sharded_ranks(world, "nccl", nf8)
+        for fi, (fb, fw, recon) in enumerate(want_frames):
+            for r, got in enumerate(res):
+                a, b = got["rows"]
+                if got[f"ovf{fi}"] or int(got[f"bits{fi}"]) != fb \
+                        or not np.array_equal(got[f"words{fi}"], fw):
+                    raise AssertionError(f"8 NCCL: rank {r} frame {fi}: payload differs")
+                for c, plane, rows in zip("yuv", recon, (16, 8, 8)):
+                    if not np.array_equal(got[f"{c}{fi}"], plane[rows * a:rows * b]):
+                        raise AssertionError(f"8 NCCL: rank {r} frame {fi}: recon differs")
+        print(f"8 make_sharded_frame_encoder over NCCL on {world} cards: {nf8} frames equal "
+              f"encode_frame_core", flush=True)
+    else:
+        print(f"8 make_sharded_frame_encoder over NCCL: not run, it needs two cards "
+              f"and this machine has {n_cards}", flush=True)
+
+    # ---- 9. command line -----------------------------------------------------------
+    starts[9] = time.perf_counter()
+    from fpga_mpeg2_encoder_tpu_torch.cli import decode as decode_cli
+    from fpga_mpeg2_encoder_tpu_torch.utils import yuv
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clips = [(416, 64, make_frames(416, 64, 4)), (W, H, frames[:4])]
+        cmd = [sys.executable, "-m", "fpga_mpeg2_encoder_tpu_torch.cli.encode",
+               "--device", "cuda", "--stats", "--quiet"]
+        for i, (w, h, clip) in enumerate(clips):
+            yuv.write_frames(os.path.join(tmp, f"in{i}.yuv"), clip)
+            cmd += ["--input", os.path.join(tmp, f"in{i}.yuv"), "--size", f"{w}x{h}",
+                    "--out", os.path.join(tmp, f"out{i}.m2v")]
+        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+        if r.returncode:
+            raise AssertionError(f"9: cli.encode exited {r.returncode}:\n{r.stderr}")
+        stats = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")]
+        cli_cfg = EncoderConfig(xl=7, yl=7, vector_level=3, q_level=2)
+        for i, (w, h, clip) in enumerate(clips):
+            with open(os.path.join(tmp, f"out{i}.m2v"), "rb") as f:
+                got = f.read()
+            if got != Encoder(cli_cfg, device="cuda").encode(clip, w, h, 23):
+                raise AssertionError(f"9: cli.encode's {w}x{h} stream != Encoder.encode")
+            off = {k: stats[i]["kernel_launches"][k] for k in MAIN_PATH
+                   if stats[i]["kernel_launches"][k] != len(clip)}
+            if off:
+                raise AssertionError(f"9: cli.encode {w}x{h}: kernels not launched exactly "
+                                     f"once a frame: {off}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = decode_cli.main(["--input", os.path.join(tmp, "out0.m2v"), "--validate",
+                                  "--ref", os.path.join(tmp, "in0.yuv")])
+        if rc:
+            raise AssertionError(f"9: cli.decode returned {rc}")
+        info = json.loads(out.getvalue().strip().splitlines()[-1])
+        if info["validator"] != "pass" or info["frames"] != 4:
+            raise AssertionError(f"9: cli.decode --validate: {info}")
+    print(f"9 cli.encode --device cuda (416x64 and {W}x{H}, 4 frames each, back to back): "
+          f"streams equal Encoder.encode, each main-path kernel once a frame: "
+          f"{[s['kernel_launches'] for s in stats]}; cli.decode --validate --ref on 416x64: "
+          f"validator {info['validator']}, PSNR-Y {info['psnr_y_mean']} dB (min "
+          f"{info['psnr_y_min']})", flush=True)
+
+    starts[10] = time.perf_counter()
+    print("phase seconds: " + ", ".join(f"{k} {starts[k + 1] - starts[k]:.1f}"
+                                        for k in range(1, 10)), flush=True)
 
     kernels = []
     for kname in MAIN_PATH + OFF_PATH:

@@ -19,8 +19,9 @@ frames that keeps the reconstruction and the sequence buffer on the device
 and never waits for it, so the host reads back once per chunk.
 
 Packing buffers are sized by caps (default 256 KB/frame) with exact overflow
-detection; an overflowing frame is re-encoded up to its slot grid and packed
-on the host by the C++ stitcher, byte-identically.
+detection; an overflowing frame or chunk is encoded again on the device at
+the caps of ``bound_caps``, which no frame can overflow.  Caps never change
+the bytes.
 """
 from __future__ import annotations
 
@@ -37,7 +38,6 @@ from ..ops.kernels import me as k_me
 from ..ops.kernels import pack as k_pack
 from ..ops.kernels import transform as k_transform
 from ..runtime.state import EncoderState
-from ..utils import native
 from ..utils.logging import SequenceStats
 
 DEFAULT_ROW_CAP = 2048       # words/slice budget (8 KB)
@@ -48,8 +48,7 @@ def symbolize_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
                          i_frame: int, frame_no: int, *, yr: int, ur: int,
                          q_level: int):
     """The pipeline up to symbolisation: (recon_y, recon_u, recon_v, slots
-    (2 + nby, S) int32).  Also the overflow retry: its slot grid is packed on
-    the host with no caps."""
+    (2 + nby, S) int32)."""
     y, u, v = colorspace.subsample_420(y444, u444, v444)
     mr = k_me.estimate_and_predict_planes(y, u, v, prev_y, prev_u, prev_v,
                                           i_frame == 0, yr, ur)
@@ -72,20 +71,6 @@ def encode_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
     row_words, row_bits, pack_ovf = k_pack.pack_slots(slots, row_cap)
     fwords, fbits = k_pack.merge_rows(row_words, row_bits, frame_cap)
     return recon_y, recon_u, recon_v, fwords, fbits, pack_ovf | (fbits > 32 * frame_cap)
-
-
-def stitch_slots_host(slots: torch.Tensor) -> bytes:
-    """Pack a frame's (R, S) int32 slot grid, a CPU tensor, on the host (C++
-    stitcher): rows are byte-aligned, exactly like the device merge, so the
-    payload is byte-identical to the device path."""
-    r, s = slots.shape
-    flat = entropy.slot_u32(slots.reshape(-1)).numpy()
-    codes = (flat & entropy.SLOT_CODE_MASK).astype(np.uint32)
-    lens = (flat >> entropy.SLOT_LEN_SHIFT).astype(np.int32)
-    align = np.zeros(r * s, np.uint8)
-    align[::s] = 1                      # byte-align at every row start
-    data, _bits = native.pack_symbols_host(codes, lens, align)
-    return data
 
 
 def encode_gop_scan_core(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
@@ -125,6 +110,26 @@ def encode_gop_scan_core(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
     return (*prev, seq_w, seq_b, i_f, fno, ovf, torch.stack(frame_bits), frame_ifs)
 
 
+def bound_caps(width: int, height: int) -> Tuple[int, int]:
+    """(row_cap, frame_cap) that no frame of width x height can overflow:
+    entropy's analytic bounds.  The overflow retry encodes at these caps, a
+    chunk of n frames with seq_cap = n * frame_cap."""
+    nbx, nby = width // 16, height // 16
+    return entropy.slice_words_bound(nbx), entropy.frame_words_bound(nbx, nby)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device: "cuda" (the kernels; raises if torch
+    sees no card) or "cpu" (their plain versions)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but torch sees no CUDA device")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
 def words_to_bytes(words: np.ndarray, nbits: int) -> bytes:
     return np.asarray(words).astype(">u4").tobytes()[: (nbits + 7) // 8]
 
@@ -154,12 +159,7 @@ class Encoder:
     def __init__(self, config: EncoderConfig = EncoderConfig(),
                  row_cap: int = DEFAULT_ROW_CAP, frame_cap: int = DEFAULT_FRAME_CAP,
                  device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("device='cuda' but torch sees no CUDA device")
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = resolve_device(device)
         self.config = config
         self.row_cap = row_cap
         self.frame_cap = frame_cap
@@ -236,6 +236,9 @@ class Encoder:
                                (state.recon_y, state.recon_u, state.recon_v))
         self.stats = SequenceStats(width=state.width, height=state.height)
 
+    def _kw(self):
+        return dict(yr=self.config.yr, ur=self.config.ur, q_level=self.config.q_level)
+
     def _upload(self, plane) -> torch.Tensor:
         # torch wants writable host memory (JAX hands out read-only arrays)
         return torch.as_tensor(np.require(plane, np.uint8, ["W"]), device=self.device)
@@ -273,18 +276,18 @@ class Encoder:
         if self._prev is None:
             self._prev = self._zero_prev()
         planes = tuple(self._upload(p) for p in (y, u, v))
-        kw = dict(yr=self.config.yr, ur=self.config.ur, q_level=self.config.q_level)
+        args = (*planes, *self._prev, self._i_frame, self._frame_no)
         ry, ru, rv, fw, fb, ovf = encode_frame_core(
-            *planes, *self._prev, self._i_frame, self._frame_no, **kw,
-            row_cap=self.row_cap, frame_cap=self.frame_cap)
+            *args, **self._kw(), row_cap=self.row_cap, frame_cap=self.frame_cap)
         if bool(ovf):
-            # rare: frame exceeded the caps; redo up to the slot grid and
-            # stitch on the host (no caps involved)
-            ry, ru, rv, payload = self._encode_frame_hoststitch(planes, kw)
-            nbits = len(payload) * 8
-        else:
-            nbits = int(fb)
-            payload = _download_payload(fw, nbits)
+            # rare: the frame exceeded the caps; encode it again at the bounds
+            row_cap, frame_cap = bound_caps(seq.width, seq.height)
+            ry, ru, rv, fw, fb, ovf = encode_frame_core(
+                *args, **self._kw(), row_cap=row_cap, frame_cap=frame_cap)
+            if bool(ovf):
+                raise RuntimeError("frame exceeded the analytic worst-case buffer bound")
+        nbits = int(fb)
+        payload = _download_payload(fw, nbits)
         self._prev = (ry, ru, rv)
         self._payload.append(payload)
         self.stats.add(index=self._frame_no, i_frame=self._i_frame, bits=nbits,
@@ -302,27 +305,19 @@ class Encoder:
             self._prev = self._zero_prev()
         stacks = [self._upload(np.stack([np.asarray(f[i]) for f in frames]))
                   for i in range(3)]
-        kw = dict(yr=self.config.yr, ur=self.config.ur, q_level=self.config.q_level)
-        caps = dict(row_cap=self.row_cap, frame_cap=self.frame_cap,
-                    seq_cap=self.frame_cap * max(1, len(frames) // 4))
+        args = (*stacks, *self._prev, self._i_frame, self._frame_no, seq.pframes_count)
         ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gop_scan_core(
-            *stacks, *self._prev, self._i_frame, self._frame_no,
-            seq.pframes_count, **kw, **caps)
+            *args, **self._kw(), row_cap=self.row_cap, frame_cap=self.frame_cap,
+            seq_cap=self.frame_cap * max(1, len(frames) // 4))
         if bool(ovf):
-            # rare: some frame exceeded the caps; redo the chunk frame by frame
-            # up to the slot grid + host C++ stitch (byte-identical)
-            prev = self._prev
-            for k in range(len(frames)):
-                planes = tuple(s[k] for s in stacks)
-                *prev, payload = self._encode_frame_hoststitch(planes, kw, prev)
-                self._payload.append(payload)
-                self.stats.add(index=self._frame_no, i_frame=self._i_frame,
-                               bits=len(payload) * 8, wall_s=0.0)
-                self._i_frame = 0 if self._i_frame >= seq.pframes_count \
-                    else self._i_frame + 1
-                self._frame_no += 1
-            self._prev = tuple(prev)
-            return
+            # rare: some frame or the chunk exceeded the caps; encode the
+            # chunk again at the bounds
+            row_cap, frame_cap = bound_caps(seq.width, seq.height)
+            ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gop_scan_core(
+                *args, **self._kw(), row_cap=row_cap, frame_cap=frame_cap,
+                seq_cap=frame_cap * len(frames))
+            if bool(ovf):
+                raise RuntimeError("chunk exceeded the analytic worst-case buffer bound")
         self._prev = (ry, ru, rv)
         self._payload.append(_download_payload(sw, int(sb)))
         for k, (bits, i_frame) in enumerate(zip(fbits.tolist(), fifs)):
@@ -330,13 +325,6 @@ class Encoder:
                            wall_s=0.0)
         self._i_frame = i_f
         self._frame_no = fno
-
-    def _encode_frame_hoststitch(self, planes, kw, prev=None):
-        """Device pipeline up to the slot grid + host C++ stitch (overflow
-        retry path)."""
-        ry, ru, rv, slots = symbolize_frame_core(
-            *planes, *(prev or self._prev), self._i_frame, self._frame_no, **kw)
-        return ry, ru, rv, stitch_slots_host(slots.cpu())
 
     def finish(self, stop_mode: str = "clean") -> bytes:
         """End the sequence (i_sequence_stop semantics) and return the stream.

@@ -1,7 +1,8 @@
 """Parallel variable-length bit packing by prefix sum: the plain PyTorch
 versions of the pack and merge kernels (ops/kernels/pack.py) and of
 pack_symbols, plus the per-frame sequence append (merge_append, the merge
-kernel's append mode, is merge_rows then append_bitstring).
+kernel's append mode, is merge_rows then append_bitstring), its batched
+form append_bitstrings_batched, and concat_bitstrings.
 
 A bit-string is a row of 32-bit words, MSB first, left-justified and
 zero-filled beyond its length (so OR is concatenation), held as int64 values
@@ -96,6 +97,34 @@ def merge_rows(words: torch.Tensor, bits: torch.Tensor, cap_words: int
     return payload[0], bits.sum()
 
 
+def _shift_right(b: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
+    """Shift the bit-strings b (..., C) right by nbits (...,) bits each,
+    within their C words: bits shifted past the last word are dropped."""
+    c = b.shape[-1]
+    s = (nbits & 31)[..., None]
+    k = torch.arange(c, device=b.device) - (nbits >> 5)[..., None]
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    cur = torch.where(k >= 0, b.gather(-1, k.clamp(min=0)), zero)
+    prev = torch.where(k >= 1, b.gather(-1, (k - 1).clamp(min=0)), zero)
+    return torch.where(s > 0, (cur >> s) | ((prev << (32 - s)) & _MASK32), cur)
+
+
+def concat_bitstrings(a: torch.Tensor, bl_a: torch.Tensor, b: torch.Tensor,
+                      bl_b: torch.Tensor, out_words: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Concatenate left-justified bit-strings: (..., Ca) of bl_a bits and
+    (..., Cb) of bl_b bits -> ((..., out_words), bl_a + bl_b), for
+    bl_a <= 32 * Ca.  Content beyond out_words words is dropped (callers
+    size for the worst case or detect overflow from the returned lengths)."""
+    def fit(x):
+        n = x.shape[-1]
+        if n >= out_words:
+            return x[..., :out_words]
+        return torch.cat([x, x.new_zeros(x.shape[:-1] + (out_words - n,))], dim=-1)
+    bl_a = bl_a.to(torch.int64)
+    return fit(a) | _shift_right(fit(b), bl_a), bl_a + bl_b
+
+
 def check_append_window(seq_words: int, c: int) -> None:
     """Raise unless an accumulator of seq_words words can take a window of
     c + 1 words (append_bitstring's sizing contract)."""
@@ -123,16 +152,7 @@ def append_bitstring(seq: torch.Tensor, seq_bits: torch.Tensor,
     Without the margin the clamp bites BELOW the overflow threshold - in the
     worst case (C + 1 == buffer width) every append lands at word 0 and the
     corruption is silent - so undersized accumulators are rejected."""
-    check_append_window(seq.shape[-1], b.shape[-1])
-    c = b.shape[-1]
-    s = seq_bits & 31
-    zero = torch.zeros(1, dtype=torch.int64, device=b.device)
-    bpad = torch.cat([b, zero])
-    prev = torch.cat([zero, b])
-    sh = torch.where(s > 0, (bpad >> s) | ((prev << (32 - s)) & _MASK32), bpad)
-    off = (seq_bits >> 5).clamp(max=seq.shape[-1] - c - 1)
-    idx = off + torch.arange(c + 1, device=seq.device)
-    seq[idx] = seq[idx] | sh
+    append_bitstrings_batched(seq[None], seq_bits.reshape(1), b[None], b_bits.reshape(1))
     return seq, seq_bits + b_bits
 
 
@@ -146,3 +166,25 @@ def merge_append(seq: torch.Tensor, seq_bits: torch.Tensor, words: torch.Tensor,
     payload, fbits = merge_rows(words, bits, frame_cap)
     seq, seq_bits = append_bitstring(seq, seq_bits, payload, fbits)
     return seq, seq_bits, fbits, fbits > 32 * frame_cap
+
+
+def append_bitstrings_batched(seq: torch.Tensor, seq_bits: torch.Tensor,
+                              b: torch.Tensor, b_bits: torch.Tensor,
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """append_bitstring for B independent streams, in place: seq (B, N),
+    seq_bits (B,), b (B, C), b_bits (B,) -> (seq, seq_bits + b_bits).  Each
+    stream's C + 1 word window sits at its own offset, clamped; the same
+    sizing contract holds (allocate seq_cap + C + 1 words a stream, check
+    seq_bits > 32 * seq_cap).  append_bitstring is this with B = 1."""
+    nb, n = seq.shape
+    c = b.shape[-1]
+    check_append_window(n, c)
+    s = (seq_bits & 31)[:, None]
+    zero = torch.zeros((nb, 1), dtype=torch.int64, device=b.device)
+    bpad = torch.cat([b, zero], dim=1)
+    prev = torch.cat([zero, b], dim=1)
+    sh = torch.where(s > 0, (bpad >> s) | ((prev << (32 - s)) & _MASK32), bpad)
+    off = (seq_bits >> 5).clamp(max=n - c - 1)
+    idx = off[:, None] + torch.arange(c + 1, device=seq.device)
+    seq.scatter_(1, idx, seq.gather(1, idx) | sh)
+    return seq, seq_bits + b_bits

@@ -192,21 +192,28 @@ def symbolize_frame(
     i_frame: int,             # GOP position (0 => I-frame)
     frame_no: int,            # frames since sequence start (timecode)
     q_level: int,
+    first_row: int = 0,       # frame MB row of row 0 (slice-row sharding)
+    include_headers: bool = True,   # False: slice rows only (the sharded path
+                                    # packs the header rows on their own)
 ) -> torch.Tensor:
-    """-> (2 + nby, S) int32 slot grid, S = 3 + 394 * nbx."""
+    """-> (2 + nby, S) int32 slot grid, S = 3 + 394 * nbx; (nby, S) without
+    the header rows."""
     # imported here: the kernel wrapper imports this module
     from .kernels.acsym import ac_slot_grid as ac_slot_grid_dispatch
 
     slice_slots = ac_slot_grid_dispatch(
-        *ac_inputs(quant_zig, inter, mvx, mvy, i_frame, q_level))
+        *ac_inputs(quant_zig, inter, mvx, mvy, i_frame, q_level, first_row))
+    if not include_headers:
+        return slice_slots
     return torch.cat([_header_rows(i_frame, frame_no, slice_slots.shape[1],
                                    inter.device), slice_slots], dim=0)
 
 
 def ac_inputs(quant_zig: torch.Tensor, inter: torch.Tensor, mvx: torch.Tensor,
-              mvy: torch.Tensor, i_frame: int, q_level: int):
+              mvy: torch.Tensor, i_frame: int, q_level: int, first_row: int = 0):
     """Everything of a frame's slice rows but the AC symbols: returns the
-    operands (zmod, small) of ac_slot_grid."""
+    operands (zmod, small) of ac_slot_grid.  Slice headers number the rows
+    from ``first_row``."""
     nby, nbx = inter.shape
     dev = inter.device
     zig = quant_zig.to(torch.int64)
@@ -277,7 +284,7 @@ def ac_inputs(quant_zig: torch.Tensor, inter: torch.Tensor, mvx: torch.Tensor,
     tile_small = mb_small[..., 4:].view(nby, nbx, 6, 65)
     tile_small[..., 0] = pack_slot(dc_code, dc_len)
     tile_small[..., 64] = pack_slot(torch.full_like(dc, 0b10), 2 * nz.to(torch.int64))
-    y16 = torch.arange(nby, dtype=torch.int32, device=dev)
+    y16 = torch.arange(first_row, first_row + nby, dtype=torch.int32, device=dev)
     hdr_p = torch.stack([torch.full_like(y16, _s32(1 | 24 << SLOT_LEN_SHIFT)),
                          (y16 + 1) | 8 << SLOT_LEN_SHIFT,
                          torch.full_like(y16, (2 << q_level) | 6 << SLOT_LEN_SHIFT)],

@@ -1,0 +1,208 @@
+"""Data-parallel multi-stream encoding: a batch of independent video streams,
+all on one device or split over the ranks of a ``stream`` mesh.
+
+The counterpart of deploying N copies of the reference IP (BASELINE config
+5: "Batched 8-stream 1080p ... per-chip stream isolation").  Streams never
+communicate, so each stream's bytes are those of a single-stream encode
+whatever the batch or the mesh.  Every kernel takes one frame, so a batch is
+a loop over streams, each through the single-stream functions of
+models/encoder.  Every launch goes to one CUDA stream, so the JAX package's
+order (a scan over frames of a vmap over streams) would change nothing.  A
+stream axis in the kernels' grids is later work.
+
+Unlike the JAX package there is no statistical level budget (``budget_bps``):
+a row overflows exactly when its bits exceed 32 * row_cap, and an
+overflowing batch is encoded again at ``models.encoder.bound_caps``, as
+``Encoder`` encodes an overflowing frame.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..config import EncoderConfig, SequenceConfig
+from ..core.bitstream import BitWriter, SEQUENCE_END_CHUNKS, sequence_header_chunks
+from ..models.encoder import (
+    DEFAULT_FRAME_CAP,
+    DEFAULT_ROW_CAP,
+    bound_caps,
+    encode_frame_core,
+    encode_gop_scan_core,
+    resolve_device,
+    words_to_bytes,
+)
+from .mesh import local_range
+
+Frame = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+
+def encode_frames_batched(y444, u444, v444, prev_y, prev_u, prev_v,
+                          i_frame: Sequence[int], frame_no: Sequence[int], *,
+                          yr: int, ur: int, q_level: int, row_cap: int, frame_cap: int):
+    """One frame of each of B streams: (B, H, W) planes, (B, H, W) and
+    (B, H/2, W/2) previous recons, B host ints each for i_frame and frame_no
+    -> encode_frame_core's outputs stacked over the streams."""
+    outs = [encode_frame_core(y444[b], u444[b], v444[b], prev_y[b], prev_u[b], prev_v[b],
+                              int(i_frame[b]), int(frame_no[b]), yr=yr, ur=ur,
+                              q_level=q_level, row_cap=row_cap, frame_cap=frame_cap)
+            for b in range(y444.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def encode_gops_batched(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
+                        i_frame0: Sequence[int], frame_no0: Sequence[int],
+                        pframes_count: int, *, yr: int, ur: int, q_level: int,
+                        row_cap: int, frame_cap: int, seq_cap: int):
+    """F frames of each of B streams, (B, F, H, W) stacks, each stream
+    through encode_gop_scan_core.  Returns its outputs stacked over the
+    streams: recon_y, recon_u, recon_v (B, ...), seq_words (B, seq_cap +
+    frame_cap + 1) int64, seq_bits (B,), i_frame, frame_no (B host ints
+    each), overflow (B,) bool, frame_bits (B, F), frame_i_frames (B, F) host
+    ints."""
+    outs = [encode_gop_scan_core(frames_y[b], frames_u[b], frames_v[b], prev_y[b],
+                                 prev_u[b], prev_v[b], int(i_frame0[b]), int(frame_no0[b]),
+                                 pframes_count, yr=yr, ur=ur, q_level=q_level,
+                                 row_cap=row_cap, frame_cap=frame_cap, seq_cap=seq_cap)
+            for b in range(frames_y.shape[0])]
+    ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = zip(*outs)
+    return (torch.stack(ry), torch.stack(ru), torch.stack(rv), torch.stack(sw),
+            torch.stack(sb), list(i_f), list(fno), torch.stack(ovf), torch.stack(fbits),
+            list(fifs))
+
+
+class BatchEncoder:
+    """Encode a batch of same-sized streams concurrently.
+
+    Each stream keeps its own GOP index, timecode and byte assembly on the
+    host.  ``push_frames`` steps one frame per stream; ``push_chunks``
+    encodes several frames per stream with one upload and one download (the
+    high-throughput path).  Without a mesh this process encodes all
+    ``batch`` streams on ``device``; with a ``stream`` mesh each rank encodes
+    its share on its own device, and ``finish`` gathers the streams so that
+    every rank returns all of them.
+
+    As in the JAX package, ``finish`` leaves each stream's payload empty and
+    keeps the recon and GOP state, so a second sequence through the same
+    object carries no sequence header: use one object per sequence.
+    """
+
+    def __init__(self, config: EncoderConfig, seq: SequenceConfig, batch: int,
+                 mesh: Optional[DeviceMesh] = None, row_cap: int = DEFAULT_ROW_CAP,
+                 frame_cap: int = DEFAULT_FRAME_CAP, device="cuda"):
+        self.device = resolve_device(device)
+        self.group = None if mesh is None else mesh.get_group("stream")
+        self.config = config
+        self.seq = seq.validate(config)
+        self.batch = batch
+        self.row_cap = row_cap
+        self.frame_cap = frame_cap
+        self.streams = range(batch) if mesh is None else local_range(batch, mesh, "stream")
+        n, h, w = len(self.streams), self.seq.height, self.seq.width
+        zc = torch.zeros((n, h // 2, w // 2), dtype=torch.uint8, device=self.device)
+        self._prev = (torch.zeros((n, h, w), dtype=torch.uint8, device=self.device),
+                      zc, zc.clone())
+        self._i_frame = [0] * n
+        self._frame_no = [0] * n
+        bw = BitWriter()
+        bw.put_chunks(sequence_header_chunks(self.seq.width, self.seq.height))
+        hdr = bw.to_bytes_aligned()
+        self._payload: List[List[bytes]] = [[hdr] for _ in range(n)]
+
+    def _kw(self):
+        return dict(yr=self.config.yr, ur=self.config.ur, q_level=self.config.q_level)
+
+    def _upload(self, stack: np.ndarray) -> torch.Tensor:
+        want = (self.seq.height, self.seq.width)
+        if stack.shape[-2:] != want or stack.dtype != np.uint8:
+            raise ValueError(f"frames of {stack.shape[-2:]} {stack.dtype}, the sequence "
+                             f"takes {want} uint8")
+        return torch.as_tensor(stack, device=self.device)
+
+    def _frames(self, frames: List[Frame]):
+        """This process's streams' frames as three (B_l, H, W) device stacks."""
+        return tuple(self._upload(np.stack([frames[b][i] for b in self.streams]))
+                     for i in range(3))
+
+    def _chunks(self, chunks: List[List[Frame]]):
+        """This process's streams' chunks as three (B_l, F, H, W) device stacks."""
+        return tuple(self._upload(np.stack([np.stack([f[i] for f in chunks[b]])
+                                            for b in self.streams])) for i in range(3))
+
+    def _append_payloads(self, words: torch.Tensor, bits: torch.Tensor) -> None:
+        """Each stream's (B_l, N) words up to its bits, in one download."""
+        bits_h = bits.tolist()
+        host = words[:, :(max(bits_h) + 31) // 32].cpu().numpy()
+        for j, nbits in enumerate(bits_h):
+            self._payload[j].append(words_to_bytes(host[j, :(nbits + 31) // 32], nbits))
+
+    def _check_batch(self, items: Sequence) -> None:
+        if len(items) != self.batch:
+            raise ValueError(f"{len(items)} streams given, the batch has {self.batch}")
+
+    def push_frames(self, frames: List[Frame]) -> None:
+        """One YUV 4:4:4 uint8 frame per stream (all ``batch`` of them; each
+        rank encodes its own)."""
+        self._check_batch(frames)
+        args = (*self._frames(frames), *self._prev,
+                self._i_frame, self._frame_no)
+        ry, ru, rv, fw, fb, ovf = encode_frames_batched(
+            *args, **self._kw(), row_cap=self.row_cap, frame_cap=self.frame_cap)
+        if bool(ovf.any()):
+            row_cap, frame_cap = bound_caps(self.seq.width, self.seq.height)
+            ry, ru, rv, fw, fb, ovf = encode_frames_batched(
+                *args, **self._kw(), row_cap=row_cap, frame_cap=frame_cap)
+            if bool(ovf.any()):
+                raise RuntimeError("frame exceeded the analytic worst-case buffer bound")
+        self._prev = (ry, ru, rv)
+        self._append_payloads(fw, fb)
+        self._i_frame = [0 if i >= self.seq.pframes_count else i + 1 for i in self._i_frame]
+        self._frame_no = [n + 1 for n in self._frame_no]
+
+    def push_chunks(self, chunks: List[List[Frame]]) -> None:
+        """Several frames per stream, the same number for every stream,
+        encoded with one upload and one payload download."""
+        self._check_batch(chunks)
+        n_frames = len(chunks[0])
+        if any(len(c) != n_frames for c in chunks):
+            raise ValueError("every stream's chunk must hold the same number of frames")
+        args = (*self._chunks(chunks), *self._prev,
+                self._i_frame, self._frame_no, self.seq.pframes_count)
+        caps = dict(row_cap=self.row_cap, frame_cap=self.frame_cap,
+                    seq_cap=self.frame_cap * max(1, n_frames // 4))
+        ry, ru, rv, sw, sb, i_f, fno, ovf, _, _ = encode_gops_batched(
+            *args, **self._kw(), **caps)
+        if bool(ovf.any()):
+            row_cap, frame_cap = bound_caps(self.seq.width, self.seq.height)
+            caps = dict(row_cap=row_cap, frame_cap=frame_cap, seq_cap=frame_cap * n_frames)
+            ry, ru, rv, sw, sb, i_f, fno, ovf, _, _ = encode_gops_batched(
+                *args, **self._kw(), **caps)
+            if bool(ovf.any()):
+                raise RuntimeError("chunk exceeded the analytic worst-case buffer bound")
+        self._prev = (ry, ru, rv)
+        self._append_payloads(sw, sb)
+        self._i_frame, self._frame_no = i_f, fno
+
+    def finish(self) -> List[bytes]:
+        """End every stream's sequence: all ``batch`` streams, in order, on
+        every rank."""
+        bw = BitWriter()
+        bw.put_chunks(SEQUENCE_END_CHUNKS)
+        end = bw.to_bytes_aligned()
+        mine = {}
+        for j, b in enumerate(self.streams):
+            data = b"".join(self._payload[j]) + end
+            target = (len(data) // 32 + 1) * 32
+            mine[b] = data + b"\x00" * (target - len(data))
+        self._payload = [[b""] for _ in self.streams]
+        if self.group is None:
+            return [mine[b] for b in range(self.batch)]
+        parts = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(parts, mine, group=self.group)
+        streams = {}
+        for part in parts:
+            streams.update(part)
+        return [streams[b] for b in range(self.batch)]

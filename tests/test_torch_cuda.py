@@ -20,7 +20,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from fpga_mpeg2_encoder_tpu_torch import Encoder, EncoderConfig
+from fpga_mpeg2_encoder_tpu_torch import Encoder, EncoderConfig, SequenceConfig
 from fpga_mpeg2_encoder_tpu_torch.core import tables
 from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
@@ -28,6 +28,9 @@ from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
+from fpga_mpeg2_encoder_tpu_torch.models.encoder import encode_frame_core
+from fpga_mpeg2_encoder_tpu_torch.parallel.dp import BatchEncoder
+from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import band_with_halo, frame_tail, make_local_step
 from fpga_mpeg2_encoder_tpu_torch.utils.testdata import chroma_maps, random_sequence
 
 pytestmark = pytest.mark.cuda
@@ -620,7 +623,7 @@ def test_wrappers_check_inputs(dev):
 def test_encoder_on_card_equals_cpu(dev, w, chunk, caps):
     """Whole streams on the card equal the plain versions' on the CPU, with
     every main-path kernel launched once per frame and the split motion
-    kernels never; the tiny caps force the host overflow retry."""
+    kernels never; the tiny caps force the overflow retry at the bounds."""
     cfg = EncoderConfig(xl=5, yl=4)
     frames = _video(w + chunk, w, 64, 5, "noise" if caps else "pan")
     _build.reset_launches()
@@ -629,3 +632,79 @@ def test_encoder_on_card_equals_cpu(dev, w, chunk, caps):
     assert _build.LAUNCHES["me_luma"] == _build.LAUNCHES["chroma_pred"] == 0
     want = Encoder(cfg, device="cpu", **caps).encode(frames, w, 64, 2, chunk_frames=chunk)
     assert got == want
+
+
+@pytest.mark.parametrize("w", [64, 416])
+def test_batch_encoder_on_card_equals_cpu(dev, w):
+    """Three streams through BatchEncoder (one frame, then chunks of 3 and
+    1) on the card equal the same on the CPU, with every main-path kernel
+    launched once per stream and frame and the split motion kernels never."""
+    cfg, seq = EncoderConfig(xl=5, yl=4), SequenceConfig(w, 64, 2)
+    videos = [_video(w + b, w, 64, 5, "noise" if b % 2 else "pan") for b in range(3)]
+    streams = {}
+    for d in (dev, torch.device("cpu")):
+        _build.reset_launches()
+        be = BatchEncoder(cfg, seq, 3, device=d)
+        be.push_frames([v[0] for v in videos])
+        be.push_chunks([v[1:4] for v in videos])
+        be.push_chunks([v[4:] for v in videos])
+        streams[d.type] = be.finish()
+        if d.type == "cuda":
+            assert all(_build.LAUNCHES[k] >= 15 for k in MAIN_PATH), _build.LAUNCHES
+            assert _build.LAUNCHES["me_luma"] == _build.LAUNCHES["chroma_pred"] == 0
+    assert streams["cuda"] == streams["cpu"]
+
+
+def test_shard_local_steps_on_card_equal_encode_frame_core(dev):
+    """Four shards' local_step on the card (halos cut from the whole recon,
+    the motion kernel in its band form), then the frame tail: payload and
+    recon equal encode_frame_core's on the card and on the CPU, IPP."""
+    w, h, nsh = 416, 128, 4
+    nby, rows = h // 16, h // 16 // nsh
+    step = make_local_step(nby, yr=6, ur=3, q_level=2, row_cap=2048)
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=2048, frame_cap=65536)
+    prev = {d: (torch.zeros((h, w), dtype=torch.uint8, device=d),
+                torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=d),
+                torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=d))
+            for d in ("cpu", "cuda")}
+    for fi, f in enumerate(_video(7, w, h, 3)):
+        planes = tuple(torch.as_tensor(p, device=dev) for p in f)
+        before = _build.LAUNCHES["me_fused"]
+        outs = [step(*(p[16 * rows * k:16 * rows * (k + 1)] for p in planes),
+                     band_with_halo(prev["cuda"][0], 8, 16 * rows * k, 16 * rows * (k + 1)),
+                     band_with_halo(prev["cuda"][1], 4, 8 * rows * k, 8 * rows * (k + 1)),
+                     band_with_halo(prev["cuda"][2], 4, 8 * rows * k, 8 * rows * (k + 1)),
+                     fi, fi, rows * k) for k in range(nsh)]
+        assert _build.LAUNCHES["me_fused"] == before + nsh
+        ry, ru, rv, words, bits = (torch.cat([o[i] for o in outs]) for i in range(5))
+        fw, fb, ovf = frame_tail(words, bits, torch.stack([o[5] for o in outs]).any(),
+                                 fi, fi, row_cap=2048, frame_cap=65536)
+        torch.cuda.synchronize()
+        assert not bool(ovf)
+        nw = (int(fb) + 31) // 32
+        for d in ("cuda", "cpu"):
+            want = encode_frame_core(*(torch.as_tensor(p, device=d) for p in f), *prev[d],
+                                     fi, fi, **kw)
+            assert int(want[4]) == int(fb), d
+            assert torch.equal(want[3][:nw].cpu(), fw[:nw].cpu()), d
+            for a, b in zip(want[:3], (ry, ru, rv)):
+                assert torch.equal(a.cpu(), b.cpu()), d
+            prev[d] = want[:3]
+
+
+def test_append_bitstrings_batched_on_card_equals_cpu(dev):
+    """The batched append (plain torch) on card tensors equals the CPU at
+    every seq_bits & 31, one stream clamped at the buffer's end."""
+    rng = np.random.default_rng(3)
+    n, c = 300, 40
+    for r in range(32):
+        seq_bits = np.array([32 * 5 + r, 32 * 200 + (5 * r) % 32, 32 * 290 + r])
+        seq = np.stack([random_sequence(rng, n, int(s)) for s in seq_bits])
+        fbits = np.array([37 * 32 - 8, 0, 1000])
+        words = np.stack([random_sequence(rng, c, int(b)) for b in fbits])
+        args = (seq, seq_bits, words, fbits)
+        got = bitpack.append_bitstrings_batched(*(torch.as_tensor(a.copy(), device=dev)
+                                                  for a in args))
+        want = bitpack.append_bitstrings_batched(*(torch.from_numpy(a.copy()) for a in args))
+        assert all(torch.equal(g.cpu(), w_) for g, w_ in zip(got, want)), r
+

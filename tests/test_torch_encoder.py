@@ -1,8 +1,8 @@
 """Whole streams: the port's Encoder (plain versions on the CPU) must be
 byte-identical to the JAX package's Encoder and to the golden model, across
 sizes (one at least 416 px wide), quantiser and search levels, stop modes,
-GOP wrap, chunked and streaming pushes, the overflow retry through the host
-stitcher, and a state hand-over from the JAX encoder."""
+GOP wrap, chunked and streaming pushes, the overflow retry at the analytic
+bounds, and a state hand-over from the JAX encoder."""
 import numpy as np
 import pytest
 import torch
@@ -86,35 +86,52 @@ def test_short_push_chunk_equals_push_frame():
     assert chunked == enc.finish() == _golden(cfg, frames, 64, 64, 2)
 
 
+def _record_caps(monkeypatch):
+    """Record the caps of each call of the single-frame and multi-frame
+    pipelines."""
+    calls = []
+    for name in ("encode_frame_core", "encode_gop_scan_core"):
+        real = getattr(M, name)
+
+        def rec(*a, _real=real, **kw):
+            calls.append((kw["row_cap"], kw["frame_cap"]))
+            return _real(*a, **kw)
+        monkeypatch.setattr(M, name, rec)
+    return calls
+
+
 @pytest.mark.parametrize("chunk", [1, 3])
 def test_overflow_retry_is_byte_identical(monkeypatch, chunk):
-    calls = []
-    real = M.stitch_slots_host
-    monkeypatch.setattr(M, "stitch_slots_host",
-                        lambda slots: calls.append(1) or real(slots))
+    """Caps far too small for noise: each of three frames pushed alone, or
+    their chunk of three, overflows and is encoded again at the analytic
+    bounds, byte-identically."""
+    calls = _record_caps(monkeypatch)
     cfg = EncoderConfig(xl=4, yl=4)
     frames = _video(4, 64, 64, 3, "noise")
     got = Encoder(cfg, row_cap=64, frame_cap=256, device="cpu").encode(
         frames, 64, 64, 1, chunk_frames=chunk)
-    assert len(calls) == 3
+    retries = [c for c in calls if c == M.bound_caps(64, 64)]
+    pushes = 3 // chunk
+    assert len(retries) == pushes and len(calls) == 2 * pushes
     assert got == _golden(cfg, frames, 64, 64, 1)
 
 
-def test_stitch_slots_host_reads_int32_slots_as_uint32():
-    """The overflow retry's host stitcher on an int32 slot grid with lengths
-    >= 16 (negative as int32): byte-identical to packing and merging the same
-    grid on the device path's plain versions."""
-    from fpga_mpeg2_encoder_tpu_torch.ops import bitpack
-    rng = np.random.default_rng(5)
-    lens = rng.integers(0, 25, (4, 333)).astype(np.int64)
-    codes = rng.integers(0, 1 << 24, (4, 333)).astype(np.int64) & ((1 << lens) - 1)
-    slots = bitpack.symbol_slots(torch.from_numpy(codes), torch.from_numpy(lens))
-    assert slots.dtype == torch.int32 and bool((slots < 0).any())
-    words, bits, ovf = bitpack.pack_slots(slots, 512)
-    payload, nbits = bitpack.merge_rows(words, bits, 2048)
-    assert not bool(ovf)
-    want = M.words_to_bytes(payload.numpy(), int(nbits))
-    assert M.stitch_slots_host(slots) == want
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_overflow_past_the_bounds_raises(monkeypatch, chunk):
+    """A frame that overflowed even the bounds' caps would lose bits: the
+    encoder raises instead of writing a short stream."""
+    monkeypatch.setattr(M, "bound_caps", lambda w, h: (64, 256))
+    enc = Encoder(EncoderConfig(xl=4, yl=4), row_cap=64, frame_cap=256, device="cpu")
+    with pytest.raises(RuntimeError, match="analytic worst-case buffer bound"):
+        enc.encode(_video(4, 64, 64, 3, "noise"), 64, 64, 1, chunk_frames=chunk)
+
+
+def test_bound_caps_are_entropy_bounds():
+    """The retry's caps are entropy's hard bounds for the frame's macroblock
+    grid (a row of 120 macroblocks, 72 rows at 1920x1152)."""
+    from fpga_mpeg2_encoder_tpu_torch.ops import entropy
+    assert M.bound_caps(1920, 1152) == (entropy.slice_words_bound(120),
+                                        entropy.frame_words_bound(120, 72))
 
 
 def test_state_handover_from_jax_encoder():

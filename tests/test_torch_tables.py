@@ -82,7 +82,6 @@ def test_port_imports_without_jax():
         "import fpga_mpeg2_encoder_tpu_torch.ops.kernels.transform\n"
         "import fpga_mpeg2_encoder_tpu_torch.ops.kernels.acsym\n"
         "import fpga_mpeg2_encoder_tpu_torch.ops.kernels.pack\n"
-        "import fpga_mpeg2_encoder_tpu_torch.utils.native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fpga_mpeg2_encoder_tpu')]\n"
         "assert not bad, bad\n")
