@@ -54,7 +54,17 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    subprocess (bytes equal to Encoder.encode at the default caps in this
    process; each main-path kernel launched there exactly once a frame: the
    CLI's caps are the analytic bounds, so no frame is encoded twice), then `cli.decode --validate --ref` (its main, in this
-   process) on the 416x64 stream: the validator passes, PSNR-Y printed.
+   process) on the 416x64 stream: the validator passes, PSNR-Y printed;
+10. the card against the golden model, and the package's entry points:
+   (a) Encoder(device="cuda") streams of utils/testdata.GOLDEN_MATRIX
+       (vector levels 1 and 2, q_level 1, 3 and 4, the partial stop, GOP
+       wrap, 64 and 416 px wide, 3-7 frames, streaming and chunked) must
+       equal golden/encoder.encode_sequence (NumPy, sharing only core/
+       with the encoder), each main-path kernel launched at least once a
+       frame; (b) entry.entry()'s fn on its example tensors launches each
+       main-path kernel exactly once, and its payload and recon equal the
+       same call on the CPU; (c) entry.dryrun_multichip(1) in a one-rank
+       NCCL group completes.
 Then the seconds each phase took, and, as the last lines, a JSON summary of
 the kernels, the card and the device line.
 """
@@ -230,6 +240,73 @@ def run_sharded_ranks(world, backend, nf, timeout=600):
             with np.load(os.path.join(out, f"rank{r}.npz")) as f:
                 res.append(dict(f))
         return res
+
+
+def phase_10(device):
+    """Phase 10 on ``device`` ("cuda"; the dry run's group is NCCL there,
+    gloo on the CPU) -> its lines."""
+    import torch
+    import torch.distributed as dist
+    from fpga_mpeg2_encoder_tpu_torch import Encoder, EncoderConfig, SequenceConfig
+    from fpga_mpeg2_encoder_tpu_torch import entry as E
+    from fpga_mpeg2_encoder_tpu_torch.golden import encoder as G
+    from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
+    from fpga_mpeg2_encoder_tpu_torch.utils.testdata import GOLDEN_MATRIX, video
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    lines, cases = [], []
+    for w, h, q, vl, n, kind, pf, stop, groups, chunk in GOLDEN_MATRIX:
+        cfg = EncoderConfig(xl=5, yl=4, vector_level=vl, q_level=q)
+        clip = video(w + n, w, h, n, kind)
+        _build.reset_launches()
+        got = Encoder(cfg, device=device).encode(clip, w, h, pf, stop_mode=stop,
+                                                 partial_groups=groups, chunk_frames=chunk)
+        sync()
+        low = {k: _build.LAUNCHES[k] for k in MAIN_PATH if _build.LAUNCHES[k] < n}
+        if low:
+            raise AssertionError(f"10a {w}x{h} q{q} vl{vl}: kernels launched fewer than "
+                                 f"{n} times: {low}")
+        want = G.encode_sequence(cfg, SequenceConfig(w, h, pf), clip, stop_mode=stop,
+                                 partial_groups=groups)
+        if got != want:
+            raise AssertionError(f"10a {w}x{h} q{q} vl{vl} {kind} {stop} chunk {chunk}: "
+                                 f"stream ({len(got)} bytes) != golden ({len(want)} bytes)")
+        cases.append(f"{w}x{h} q{q} vl{vl} {n}f {kind} {stop}/p{pf}/chunk {chunk}")
+    lines.append(f"10a golden matrix: {len(cases)} streams byte-equal to "
+                 f"golden.encoder.encode_sequence: {'; '.join(cases)}")
+
+    fn, args = E.entry(device)
+    _build.reset_launches()
+    got = fn(*args)
+    sync()
+    once = {k: _build.LAUNCHES[k] for k in MAIN_PATH}
+    if any(v != 1 for v in once.values()):
+        raise AssertionError(f"10b entry(): launches {once}, each should be 1")
+    cfn, cargs = E.entry("cpu")
+    want = cfn(*cargs)
+    nw = (int(want[4]) + 31) // 32
+    if bool(got[5]) or int(got[4]) != int(want[4]) \
+            or not torch.equal(got[3][:nw].cpu(), want[3][:nw]) \
+            or not all(torch.equal(a.cpu(), b) for a, b in zip(got[:3], want[:3])):
+        raise AssertionError("10b entry(): the card's payload or recon != the CPU's")
+    lines.append(f"10b entry(): {int(got[4])} payload bits, payload and recon equal the "
+                 f"CPU's, launches {once}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store", world_size=1,
+                                rank=0)
+        try:
+            E.dryrun_multichip(1, device)
+        finally:
+            dist.destroy_process_group()
+    lines.append(f"10c dryrun_multichip(1) over {backend}: BatchEncoder on a stream mesh, "
+                 f"sharded_row_sad, the one-rank sharded frame encoder equal to "
+                 f"encode_frame_core: ok")
+    return lines
 
 
 def main():
@@ -761,9 +838,14 @@ def main():
           f"validator {info['validator']}, PSNR-Y {info['psnr_y_mean']} dB (min "
           f"{info['psnr_y_min']})", flush=True)
 
+    # ---- 10. the golden matrix, entry() and the dry run -------------------------
     starts[10] = time.perf_counter()
+    for line in phase_10("cuda"):
+        print(line, flush=True)
+
+    starts[11] = time.perf_counter()
     print("phase seconds: " + ", ".join(f"{k} {starts[k + 1] - starts[k]:.1f}"
-                                        for k in range(1, 10)), flush=True)
+                                        for k in range(1, 11)), flush=True)
 
     kernels = []
     for kname in MAIN_PATH + OFF_PATH:

@@ -164,7 +164,6 @@ class Encoder:
         self.row_cap = row_cap
         self.frame_cap = frame_cap
         self._seq = None
-        self._requested = None
         self._reset_sequence_state()
 
     # ------------------------------------------------------------------ one-shot
@@ -193,7 +192,6 @@ class Encoder:
     def start_sequence(self, seq: SequenceConfig) -> None:
         if self._seq is not None:
             raise RuntimeError("sequence already active; call finish() first")
-        self._requested = (seq.height, seq.width)
         seq = seq.validate(self.config)
         self._seq = seq
         bw = BitWriter()
@@ -223,7 +221,6 @@ class Encoder:
         the JAX package's: recon planes as numpy arrays); continues bit-exactly."""
         if self._seq is not None:
             raise RuntimeError("sequence already active; call finish() first")
-        self._requested = (state.height, state.width)
         self._seq = SequenceConfig(state.width, state.height,
                                    state.pframes_count).validate(self.config)
         self._payload = [state.payload]
@@ -257,15 +254,17 @@ class Encoder:
         EncoderConfig's max geometry like the RTL does
         (RTL/mpeg2encoder.v:985-991)."""
         want = (seq.height, seq.width)
+        mh, mw = self.config.max_height, self.config.max_width
         for name, plane in zip("yuv", frame):
-            if tuple(plane.shape) == want:
+            shape = tuple(plane.shape)
+            if shape == want:
                 continue
             hint = ""
-            if self._requested != want:
-                hint = (f"; the requested sequence size {self._requested} was "
-                        f"clamped to this EncoderConfig's range (max "
-                        f"{self.config.max_height}x{self.config.max_width})")
-            raise ValueError(f"{name} plane shape {tuple(plane.shape)} != latched "
+            if any(s > m for s, m in zip(shape, (mh, mw))):
+                hint = (f"; frame exceeds this EncoderConfig's max geometry "
+                        f"{mw}x{mh} (xl={self.config.xl}, yl={self.config.yl})"
+                        f" - the requested sequence size was clamped")
+            raise ValueError(f"{name} plane shape {shape} != latched "
                              f"sequence geometry {want}{hint}")
 
     def push_frame(self, y, u, v) -> None:

@@ -29,3 +29,36 @@ def chroma_maps(nby, nbx, lo, hi, seed):
     if halves != {(0, 0), (0, 1), (1, 0), (1, 1)}:
         raise ValueError(f"seed {seed} gives the (hx, hy) {sorted(halves)} only")
     return inter, mvx.astype(np.int32), mvy.astype(np.int32)
+
+
+def video(seed, w, h, n, kind="pan"):
+    """n YUV 4:4:4 uint8 frames (h, w): a panning gradient with texture
+    (real motion), or noise (escape-heavy)."""
+    rng = np.random.default_rng(seed)
+    if kind == "noise":
+        return [tuple(rng.integers(0, 256, (h, w), dtype=np.uint8) for _ in range(3))
+                for _ in range(n)]
+    pad = 48
+    yy, xx = np.mgrid[0:h + pad, 0:w + pad]
+    tex = rng.integers(0, 64, (h + pad, w + pad))
+    base = [((xx * 3 + yy * 2) // 4 % 200 + tex) % 256,
+            ((xx - yy) // 3 % 160 + 48 + tex // 2) % 256,
+            ((xx + yy) // 5 % 120 + 64 + tex // 3) % 256]
+    return [tuple(b[2 * i % pad:2 * i % pad + h, 3 * i % pad:3 * i % pad + w]
+                  .astype(np.uint8) for b in base) for i in range(n)]
+
+
+# Whole streams on the card against the golden model's encode_sequence
+# (chip_smoke.py phase 10 and tests/test_torch_cuda.py): (width, height,
+# q_level, vector_level, frames, content, pframes_count, stop_mode,
+# partial_groups, chunk_frames).  Vector levels 1 and 2, q_level 1, 3 and 4,
+# the partial stop, GOP wrap, at 64 and 416 px wide (nbx 26, where the
+# reference's acsym kernel once broke), streaming and chunked.
+GOLDEN_MATRIX = (
+    (64, 64, 1, 1, 3, "noise", 23, "coincident", 0, 1),
+    (64, 64, 4, 2, 3, "pan", 23, "partial", 1, 1),
+    (64, 64, 3, 2, 7, "pan", 2, "clean", 0, 3),          # GOP wrap: I P P I P P I
+    (416, 64, 3, 1, 3, "pan", 1, "partial", 37, 3),
+    (416, 64, 4, 2, 4, "noise", 1, "clean", 0, 1),       # GOP wrap: I P I P
+    (416, 64, 1, 1, 3, "pan", 23, "clean", 0, 3),
+)

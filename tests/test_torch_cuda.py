@@ -22,6 +22,7 @@ torch.set_num_threads(1)
 
 from fpga_mpeg2_encoder_tpu_torch import Encoder, EncoderConfig, SequenceConfig
 from fpga_mpeg2_encoder_tpu_torch.core import tables
+from fpga_mpeg2_encoder_tpu_torch.golden import encoder as G
 from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
@@ -31,7 +32,8 @@ from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
 from fpga_mpeg2_encoder_tpu_torch.models.encoder import encode_frame_core
 from fpga_mpeg2_encoder_tpu_torch.parallel.dp import BatchEncoder
 from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import band_with_halo, frame_tail, make_local_step
-from fpga_mpeg2_encoder_tpu_torch.utils.testdata import chroma_maps, random_sequence
+from fpga_mpeg2_encoder_tpu_torch.utils.testdata import (
+    GOLDEN_MATRIX, chroma_maps, random_sequence, video)
 
 pytestmark = pytest.mark.cuda
 MAIN_PATH = ("me_fused", "transform", "acsym", "pack_slots", "merge_rows")
@@ -44,24 +46,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _video(seed, w, h, n, kind="pan"):
-    rng = np.random.default_rng(seed)
-    if kind == "noise":
-        return [tuple(rng.integers(0, 256, (h, w), dtype=np.uint8) for _ in range(3))
-                for _ in range(n)]
-    pad = 48
-    yy, xx = np.mgrid[0:h + pad, 0:w + pad]
-    tex = rng.integers(0, 64, (h + pad, w + pad))
-    base = [((xx * 3 + yy * 2) // 4 % 200 + tex) % 256,
-            ((xx - yy) // 3 % 160 + 48 + tex // 2) % 256,
-            ((xx + yy) // 5 % 120 + 64 + tex // 3) % 256]
-    return [tuple(b[2 * i % pad:2 * i % pad + h, 3 * i % pad:3 * i % pad + w]
-                  .astype(np.uint8) for b in base) for i in range(n)]
-
-
 def _frame_on(dev, w, h, kind="pan"):
     """Two subsampled frames on ``dev`` and the P-frame's motion result."""
-    f0, f1 = _video(w, w, h, 2, kind)
+    f0, f1 = video(w, w, h, 2, kind)
     p0 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f0))
     p1 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f1))
     return p1, motion.estimate_and_predict_planes(*p1, *p0, False, 6, 3)
@@ -454,7 +441,7 @@ def _me_planes(dev, w, h, kind, yr):
         return tuple(torch.as_tensor(np.ascontiguousarray(p).astype(np.uint8), device=dev)
                      for p in planes)
     if kind == "pan":
-        f0, f1 = _video(w + h, w, h, 2)
+        f0, f1 = video(w + h, w, h, 2)
         y0, u0, v0 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f0))
         y1 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f1))[0]
         return y1, y0, u0, v0
@@ -565,7 +552,7 @@ def test_me_kernels_middle_band_equal_plain(dev, form, backward):
     or, ``backward``, up and left, so the best candidates of the band's top
     or bottom row lie across a seam."""
     w, h, r0, r1 = 96, 128, 2, 6
-    f0, f1 = _video(7, w, h, 2)[::-1 if backward else 1]
+    f0, f1 = video(7, w, h, 2)[::-1 if backward else 1]
     y0, u0, v0 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f0))
     y1 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f1))[0]
     band = (y1[16 * r0:16 * r1], y0[16 * r0 - 8:16 * r1 + 8],
@@ -625,12 +612,44 @@ def test_encoder_on_card_equals_cpu(dev, w, chunk, caps):
     every main-path kernel launched once per frame and the split motion
     kernels never; the tiny caps force the overflow retry at the bounds."""
     cfg = EncoderConfig(xl=5, yl=4)
-    frames = _video(w + chunk, w, 64, 5, "noise" if caps else "pan")
+    frames = video(w + chunk, w, 64, 5, "noise" if caps else "pan")
     _build.reset_launches()
     got = Encoder(cfg, device=dev, **caps).encode(frames, w, 64, 2, chunk_frames=chunk)
     assert all(_build.LAUNCHES[k] >= 5 for k in MAIN_PATH), _build.LAUNCHES
     assert _build.LAUNCHES["me_luma"] == _build.LAUNCHES["chroma_pred"] == 0
     want = Encoder(cfg, device="cpu", **caps).encode(frames, w, 64, 2, chunk_frames=chunk)
+    assert got == want
+
+
+@pytest.mark.parametrize("case", GOLDEN_MATRIX, ids=lambda c: "{}x{}-q{}-vl{}-{}f-{}-{}-p{}-c{}".format(
+    *c[:6], c[7], c[6], c[9]))
+def test_encoder_on_card_equals_golden(dev, case):
+    """The card's streams against the golden model (NumPy, sharing only
+    core/ with the encoder): vector levels 1 and 2, q_level 1, 3 and 4, the
+    partial stop and GOP wrap, at 64 and 416 px wide, streaming and
+    chunked; every main-path kernel launched at least once a frame."""
+    w, h, q, vl, n, kind, pframes, stop, groups, chunk = case
+    cfg = EncoderConfig(xl=5, yl=4, vector_level=vl, q_level=q)
+    frames = video(w + n, w, h, n, kind)
+    _build.reset_launches()
+    got = Encoder(cfg, device=dev).encode(frames, w, h, pframes, stop_mode=stop,
+                                          partial_groups=groups, chunk_frames=chunk)
+    assert all(_build.LAUNCHES[k] >= n for k in MAIN_PATH), _build.LAUNCHES
+    assert got == G.encode_sequence(cfg, SequenceConfig(w, h, pframes), frames,
+                                    stop_mode=stop, partial_groups=groups)
+
+
+@pytest.mark.parametrize("vl,q,chunk", [(1, 4, 1), (2, 1, 2), (3, 3, 2)])
+def test_encoder_on_card_2048_wide_equals_cpu(dev, vl, q, chunk):
+    """The widest frame (2048 px, nbx = 128) at each vector level: the
+    card's stream equals the plain versions' on the CPU (the golden model is
+    too slow there), an I and a P frame, streaming and chunked."""
+    cfg = EncoderConfig(xl=7, yl=4, vector_level=vl, q_level=q)
+    frames = video(2048 + vl, 2048, 64, 2, "noise" if q == 1 else "pan")
+    _build.reset_launches()
+    got = Encoder(cfg, device=dev).encode(frames, 2048, 64, 23, chunk_frames=chunk)
+    assert all(_build.LAUNCHES[k] >= 2 for k in MAIN_PATH), _build.LAUNCHES
+    want = Encoder(cfg, device="cpu").encode(frames, 2048, 64, 23, chunk_frames=chunk)
     assert got == want
 
 
@@ -640,7 +659,7 @@ def test_batch_encoder_on_card_equals_cpu(dev, w):
     1) on the card equal the same on the CPU, with every main-path kernel
     launched once per stream and frame and the split motion kernels never."""
     cfg, seq = EncoderConfig(xl=5, yl=4), SequenceConfig(w, 64, 2)
-    videos = [_video(w + b, w, 64, 5, "noise" if b % 2 else "pan") for b in range(3)]
+    videos = [video(w + b, w, 64, 5, "noise" if b % 2 else "pan") for b in range(3)]
     streams = {}
     for d in (dev, torch.device("cpu")):
         _build.reset_launches()
@@ -667,7 +686,7 @@ def test_shard_local_steps_on_card_equal_encode_frame_core(dev):
                 torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=d),
                 torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=d))
             for d in ("cpu", "cuda")}
-    for fi, f in enumerate(_video(7, w, h, 3)):
+    for fi, f in enumerate(video(7, w, h, 3)):
         planes = tuple(torch.as_tensor(p, device=dev) for p in f)
         before = _build.LAUNCHES["me_fused"]
         outs = [step(*(p[16 * rows * k:16 * rows * (k + 1)] for p in planes),

@@ -75,20 +75,28 @@ def test_kernel_source_tables_equal_reference(path, name, want):
 
 
 def test_port_imports_without_jax():
+    """Every module of the port (entry.py and the tools included) imports
+    without jax or the JAX package, so it runs on a machine without them."""
     code = (
-        "import sys\n"
-        "import fpga_mpeg2_encoder_tpu_torch\n"
-        "import fpga_mpeg2_encoder_tpu_torch.models.encoder\n"
-        "import fpga_mpeg2_encoder_tpu_torch.ops.kernels.transform\n"
-        "import fpga_mpeg2_encoder_tpu_torch.ops.kernels.acsym\n"
-        "import fpga_mpeg2_encoder_tpu_torch.ops.kernels.pack\n"
+        "import pkgutil, sys\n"
+        "import fpga_mpeg2_encoder_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    __import__(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'fpga_mpeg2_encoder_tpu')]\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+    names = {os.path.relpath(os.path.join(d, f), ROOT)
+             for d, _, fs in os.walk(os.path.join(ROOT, "fpga_mpeg2_encoder_tpu_torch"))
+             for f in fs if f.endswith(".py")}
+    assert int(r.stdout.split()[-1]) == len(names) - 1      # all but the top __init__
+    assert "fpga_mpeg2_encoder_tpu_torch/entry.py" in names
+    assert "fpga_mpeg2_encoder_tpu_torch/tools/bench_configs.py" in names
 
 
 def test_encoder_refuses_missing_cuda():
