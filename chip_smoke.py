@@ -28,8 +28,11 @@ Phases, one line each (any failure raises and the exit code is non-zero):
        bytes with the SHA-256 of the JAX package's 1080p chunked soak;
    each run must launch every main-path kernel at least once per frame, and
    the split motion kernels never (phase 3 holds them against the fused one);
-   (a) must run no plain append: the merge kernel appends each frame;
-6. profile: 16 frames of the main path under torch.profiler: kernels
+   (a) must run no plain append: the merge kernel appends each frame.
+   (a) runs the eager frame loop (encode_gop_scan_core); (b), like every
+   Encoder and BatchEncoder run below (phases 7, 9, 10a), replays the
+   compiled programs' CUDA graphs, which phase 11 holds against the eager path;
+6. profile: 16 frames of 5a's eager loop under torch.profiler: kernels
    launched and device time per frame, the device's idle share, and the
    kernels that take the most time;
 7. multi-stream (BASELINE config 5's shape): parallel/dp.py's BatchEncoder,
@@ -64,9 +67,26 @@ Phases, one line each (any failure raises and the exit code is non-zero):
        frame; (b) entry.entry()'s fn on its example tensors launches each
        main-path kernel exactly once, and its payload and recon equal the
        same call on the CPU; (c) entry.dryrun_multichip(1) in a one-rank
-       NCCL group completes.
+       NCCL group completes;
+11. the compiled programs (models/encoder.encode_gop_scan and
+   encode_frame_device: a captured CUDA graph of one frame's step, replayed
+   frame after frame with the GOP state on the card), against the eager
+   path of 5a, 5b, 7 and 10a: (a) encode_gop_scan over 5a's 96 frames at
+   bench caps: words equal to 5a's (so PAYLOAD_SHA256), each main-path
+   kernel counted exactly once a frame under replay and the split motion
+   kernels never, timed as 5a is (CUDA events, best of 3); (b) 16 frames
+   of it profiled as in phase 6: kernels, device ms, wall ms a frame and
+   the idle share, beside phase 6's; (c) Encoder.encode(chunk_frames=48)
+   gives the soak digest with each kernel exactly once a frame; (d) every
+   GOLDEN_MATRIX case streaming (encode_frame_device) and chunked
+   (encode_gop_scan) equals the golden copy; (e) phase 7's 8 x 1080p
+   BatchEncoder streams equal each stream's eager encode_gop_scan_core; (f)
+   16 frames streamed one at a time with each payload downloaded (push_frame's
+   pattern, frames on the card), encode_frame_core against
+   encode_frame_device in turns, host clock, ms a frame.
 Then the seconds each phase took, and, as the last lines, a JSON summary of
-the kernels, the card and the device line.
+the kernels (``launches``: 5b's run, through the graphs), the card and the
+device line.
 """
 import contextlib
 import hashlib
@@ -336,7 +356,8 @@ def main():
     sys.path.insert(0, root)
     from bench import PAYLOAD_SHA256, make_frames
     from fpga_mpeg2_encoder_tpu_torch import Encoder, EncoderConfig
-    from fpga_mpeg2_encoder_tpu_torch.core.bitstream import BitWriter, sequence_header_chunks
+    from fpga_mpeg2_encoder_tpu_torch.core.bitstream import (
+        SEQUENCE_END_CHUNKS, BitWriter, sequence_header_chunks)
     from fpga_mpeg2_encoder_tpu_torch.models import encoder as M
     from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
@@ -608,6 +629,7 @@ def main():
     if bool(out[7]):
         raise AssertionError("5a: payload overflow at bench caps")
     payload = check_payload("5a", out[3], int(out[4]))
+    out_a = out
     print(f"5a encode_gop_scan_core: {len(payload)} payload bytes, sha256 matches "
           f"bench.py PAYLOAD_SHA256, no overflow, launches {launches_a}", flush=True)
 
@@ -650,6 +672,7 @@ def main():
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    kernels6 = len(ev) / npf
     print(f"6 profile ({npf} frames of 5a): {len(ev) / npf:.1f} kernels per frame, "
           f"{busy:.4f} ms device time per frame, {wall:.4f} ms per frame without the "
           f"profiler: device idle {100 * (1 - busy / wall):.1f}%", flush=True)
@@ -843,9 +866,156 @@ def main():
     for line in phase_10("cuda"):
         print(line, flush=True)
 
+    # ---- 11. the compiled programs: CUDA graphs of one frame's step ------------
     starts[11] = time.perf_counter()
+    from fpga_mpeg2_encoder_tpu_torch.golden import encoder as G
+    from fpga_mpeg2_encoder_tpu_torch.runtime import graphs
+    from fpga_mpeg2_encoder_tpu_torch.utils.testdata import GOLDEN_MATRIX, video
+
+    once = {**{k: 1 for k in MAIN_PATH}, "me_luma": 0, "chroma_pred": 0}
+
+    def exact(tag, n):
+        counts = dict(_build.LAUNCHES)
+        if counts != {k: v * n for k, v in once.items()}:
+            raise AssertionError(f"{tag}: launches {counts}, want each main-path kernel "
+                                 f"exactly {n} times and the split motion kernels never")
+        return counts
+
+    def run_g(nf=NF):
+        return M.encode_gop_scan(fy[:nf], fu[:nf], fv[:nf], zy, zc, zc, 0, 0, 23,
+                                 **kw, **CAPS, seq_cap=SEQ_CAP)
+
+    t0 = time.perf_counter()
+    run_g(1)                         # the warm-up and the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    _build.reset_launches()
+    out_g = run_g()
+    torch.cuda.synchronize()
+    launches_g = exact("11a", NF)
+    nbits = int(out_g[4])
+    if bool(out_g[7]) or nbits != int(out_a[4]) \
+            or not torch.equal(out_g[3][:(nbits + 31) // 32], out_a[3][:(nbits + 31) // 32]):
+        raise AssertionError("11a: encode_gop_scan's words != 5a's")
+    check_payload("11a", out_g[3], nbits)
+    if out_g[9].tolist() != out_a[9] or out_g[8].tolist() != out_a[8].tolist():
+        raise AssertionError("11a: per-frame bits or GOP positions != 5a's")
+    runs_g = [cuda_ms(run_g, reps=1, warmup=0) for _ in range(3)]
+    ms_g = min(runs_g)
+    print(f"11a encode_gop_scan (graph replays): {nbits // 8} payload bytes, words equal 5a's, "
+          f"sha256 matches bench.py PAYLOAD_SHA256, launches {launches_g} (once a frame); "
+          f"{ms_g:.1f} ms for {NF} frames = {W * H * NF / (ms_g / 1e3) / 1e6:.1f} MPixels/s "
+          f"({NF / (ms_g / 1e3):.1f} frames/s), best of {', '.join(f'{r:.1f}' for r in runs_g)}"
+          f" ms, against 5a's eager {ms:.1f} ms; first call (warm-up and capture) "
+          f"{capture_s:.2f} s; on {smi}", flush=True)
+
+    wall_g = min(cuda_ms(lambda: run_g(npf), reps=1, warmup=1) for _ in range(3)) / npf
+    for _ in range(3):               # a window without the replays' events is taken again
+        ev_g = profile_events(lambda: run_g(npf), 1)
+        if ev_g:
+            break
+    else:
+        raise AssertionError("11b: the profiler saw no device events of the graph replays "
+                             "in 3 windows")
+    busy_g = sum(e.time_range.elapsed_us() for e in ev_g) / npf / 1e3
+    print(f"11b profile ({npf} frames of 11a, graph replays): {len(ev_g) / npf:.1f} kernels "
+          f"per frame, {busy_g:.4f} ms device time per frame, {wall_g:.4f} ms per frame "
+          f"without the profiler: device idle {100 * (1 - busy_g / wall_g):.1f}%; eager (6): "
+          f"{kernels6:.1f} kernels, {busy:.4f} ms device, "
+          f"{wall:.4f} ms wall per frame", flush=True)
+
+    _build.reset_launches()
+    stream_g = Encoder(EncoderConfig(xl=7, yl=7), device="cuda", **CAPS).encode(
+        frames, W, H, pframes_count=23, chunk_frames=48)
+    torch.cuda.synchronize()
+    exact("11c", NF)
+    if len(stream_g) != SOAK_BYTES or hashlib.sha256(stream_g).hexdigest() != SOAK_SHA256:
+        raise AssertionError("11c: Encoder.encode(chunk_frames=48) through the graphs != "
+                             "the soak digest")
+    print(f"11c Encoder.encode(chunk_frames=48) through encode_gop_scan's graph: "
+          f"{len(stream_g)} bytes, sha256 matches the 1080p soak digest, each main-path "
+          f"kernel exactly once a frame", flush=True)
+
+    cases = 0
+    for w, h, q, vl, n, kind, pf, stop, groups, _ in GOLDEN_MATRIX:
+        gcfg = EncoderConfig(xl=5, yl=4, vector_level=vl, q_level=q)
+        clip = video(w + n, w, h, n, kind)
+        want = G.encode_sequence(gcfg, SequenceConfig(w, h, pf), clip, stop_mode=stop,
+                                 partial_groups=groups)
+        for chunk in (1, n):
+            _build.reset_launches()
+            got = Encoder(gcfg, device="cuda").encode(clip, w, h, pf, stop_mode=stop,
+                                                      partial_groups=groups,
+                                                      chunk_frames=chunk)
+            torch.cuda.synchronize()
+            exact(f"11d {w}x{h} q{q} vl{vl} chunk {chunk}", n)
+            if got != want:
+                raise AssertionError(f"11d {w}x{h} q{q} vl{vl} {kind} {stop} chunk {chunk}: "
+                                     f"stream != golden")
+            cases += 1
+    print(f"11d golden matrix through the graphs: {cases} streams ({len(GOLDEN_MATRIX)} "
+          f"cases, streaming through encode_frame_device and chunked through "
+          f"encode_gop_scan) byte-equal to golden.encoder.encode_sequence, each main-path "
+          f"kernel exactly once a frame", flush=True)
+
+    # phase 7's BatchEncoder streams (graph replays) against each stream
+    # encoded by the eager encode_gop_scan_core
+    bw = BitWriter()
+    bw.put_chunks(sequence_header_chunks(W, H))
+    head = bw.to_bytes_aligned()
+    bw = BitWriter()
+    bw.put_chunks(SEQUENCE_END_CHUNKS)
+    end = bw.to_bytes_aligned()
+    for b in range(ns):
+        st = [torch.as_tensor(np.stack([f[i] for f in chunks[b]]), device=dev) for i in range(3)]
+        o = M.encode_gop_scan_core(*st, zy, zc, zc, 0, 0, 23, **kw, **CAPS,
+                                   seq_cap=CAPS["frame_cap"] * max(1, nf7 // 4))
+        data = head + M.words_to_bytes(o[3][:(int(o[4]) + 31) // 32].cpu().numpy(),
+                                       int(o[4])) + end
+        data += b"\x00" * ((len(data) // 32 + 1) * 32 - len(data))
+        if bool(o[7]) or streams7[b] != data:
+            raise AssertionError(f"11e: BatchEncoder stream {b} != its eager encode")
+    progs = sorted({(k[0], k[2], k[3]) for k in graphs._programs
+                    if k[1].type == "cuda" and graphs._programs[k].step._graph is not None})
+    print(f"11e BatchEncoder {ns} x {W}x{H} (phase 7, graph replays): each stream equals "
+          f"encode_gop_scan_core of its frames; captured programs (kind, H, W): {progs}",
+          flush=True)
+
+    # streaming: one frame at a time, its payload downloaded before the next
+    # (push_frame's pattern), frames on the card; eager and graph in turns
+    ckw = dict(**kw, **CAPS)
+
+    def stream_frames(fn, n=npf):
+        prev, total = (zy, zc, zc), 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(n):
+            ry, ru, rv, fw, fb, _ = fn(fy[k], fu[k], fv[k], *prev, 0 if k == 0 else 1, k,
+                                       **ckw)
+            nb = int(fb)
+            total += len(M.words_to_bytes(fw[:(nb + 31) // 32].cpu().numpy(), nb))
+            prev = (ry.clone(), ru.clone(), rv.clone())
+        return (time.perf_counter() - t0) * 1e3 / n, total
+
+    stream_frames(M.encode_frame_device, 2)
+    turns = [("eager", M.encode_frame_core), ("graph", M.encode_frame_device),
+             ("graph", M.encode_frame_device), ("eager", M.encode_frame_core)]
+    st_ms = {"eager": [], "graph": []}
+    sizes = set()
+    for tag, fn in turns:
+        t, nbytes_ = stream_frames(fn)
+        st_ms[tag].append(t)
+        sizes.add(nbytes_)
+    if len(sizes) != 1:
+        raise AssertionError(f"11f: streamed payload sizes differ: {sizes}")
+    print(f"11f streaming, {npf} frames of {W}x{H} one at a time with the payload downloaded "
+          f"(host clock, ms a frame, turns eager graph graph eager): encode_frame_core "
+          f"{', '.join(f'{t:.4f}' for t in st_ms['eager'])}; encode_frame_device "
+          f"{', '.join(f'{t:.4f}' for t in st_ms['graph'])}; on {smi}", flush=True)
+
+    starts[12] = time.perf_counter()
     print("phase seconds: " + ", ".join(f"{k} {starts[k + 1] - starts[k]:.1f}"
-                                        for k in range(1, 11)), flush=True)
+                                        for k in range(1, 12)), flush=True)
 
     kernels = []
     for kname in MAIN_PATH + OFF_PATH:

@@ -372,15 +372,15 @@ __device__ void chroma_predict(
 __global__ void __launch_bounds__(ME_THREADS) me_fused_kernel(
     const uint8_t* __restrict__ cur, const uint8_t* __restrict__ prev_y,
     const uint8_t* __restrict__ prev_u, const uint8_t* __restrict__ prev_v,
-    uint8_t* __restrict__ inter, int32_t* __restrict__ mvx,
-    int32_t* __restrict__ mvy, uint8_t* __restrict__ pred_y,
-    uint8_t* __restrict__ pred_u, uint8_t* __restrict__ pred_v, int nby,
-    int nbx, int yr, int iframe, int first_mb_row, int total_mb_rows,
-    int halo, int as_plane) {
+    const int32_t* __restrict__ i_frame, uint8_t* __restrict__ inter,
+    int32_t* __restrict__ mvx, int32_t* __restrict__ mvy,
+    uint8_t* __restrict__ pred_y, uint8_t* __restrict__ pred_u,
+    uint8_t* __restrict__ pred_v, int nby, int nbx, int yr, int first_mb_row,
+    int total_mb_rows, int halo, int as_plane) {
   __shared__ LumaShared sh;
   const int mb = blockIdx.x, by = mb / nbx, bx = mb - by * nbx;
   const LumaResult res = luma_me(sh, cur, prev_y, pred_y, by, bx, nby, nbx,
-                                 halo ? 8 : 0, yr, iframe, first_mb_row,
+                                 halo ? 8 : 0, yr, *i_frame == 0, first_mb_row,
                                  total_mb_rows, as_plane);
   if (threadIdx.x == 0) {
     inter[mb] = (uint8_t)res.inter;
@@ -394,14 +394,14 @@ __global__ void __launch_bounds__(ME_THREADS) me_fused_kernel(
 
 __global__ void __launch_bounds__(ME_THREADS) me_luma_kernel(
     const uint8_t* __restrict__ cur, const uint8_t* __restrict__ prev_y,
-    uint8_t* __restrict__ inter, int32_t* __restrict__ mvx,
-    int32_t* __restrict__ mvy, uint8_t* __restrict__ pred_y, int nby, int nbx,
-    int yr, int iframe, int first_mb_row, int total_mb_rows, int halo,
-    int as_plane) {
+    const int32_t* __restrict__ i_frame, uint8_t* __restrict__ inter,
+    int32_t* __restrict__ mvx, int32_t* __restrict__ mvy,
+    uint8_t* __restrict__ pred_y, int nby, int nbx, int yr, int first_mb_row,
+    int total_mb_rows, int halo, int as_plane) {
   __shared__ LumaShared sh;
   const int mb = blockIdx.x, by = mb / nbx, bx = mb - by * nbx;
   const LumaResult res = luma_me(sh, cur, prev_y, pred_y, by, bx, nby, nbx,
-                                 halo ? 8 : 0, yr, iframe, first_mb_row,
+                                 halo ? 8 : 0, yr, *i_frame == 0, first_mb_row,
                                  total_mb_rows, as_plane);
   if (threadIdx.x == 0) {
     inter[mb] = (uint8_t)res.inter;
@@ -485,32 +485,36 @@ __global__ void __launch_bounds__(32 * CHROMA_WARPS) chroma_pred_kernel(
 
 }  // namespace
 
+// i_frame: the frame's GOP position in device memory, 0 for an I-frame,
+// so that the I/P branch needs no value from the host (a CUDA graph replays
+// the launch with the position the step wrote there).
 extern "C" int mpeg2_me_fused(const void* cur, const void* prev_y,
                               const void* prev_u, const void* prev_v,
-                              void* inter, void* mvx, void* mvy, void* pred_y,
-                              void* pred_u, void* pred_v, int nby, int nbx,
-                              int yr, int iframe, int first_mb_row,
-                              int total_mb_rows, int halo, int as_plane,
-                              void* stream) {
+                              const void* i_frame, void* inter, void* mvx,
+                              void* mvy, void* pred_y, void* pred_u,
+                              void* pred_v, int nby, int nbx, int yr,
+                              int first_mb_row, int total_mb_rows, int halo,
+                              int as_plane, void* stream) {
   if (yr < 1 || yr > MAX_YR) return (int)cudaErrorInvalidValue;
   me_fused_kernel<<<nby * nbx, ME_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)cur, (const uint8_t*)prev_y, (const uint8_t*)prev_u,
-      (const uint8_t*)prev_v, (uint8_t*)inter, (int32_t*)mvx, (int32_t*)mvy,
-      (uint8_t*)pred_y, (uint8_t*)pred_u, (uint8_t*)pred_v, nby, nbx, yr,
-      iframe, first_mb_row, total_mb_rows, halo, as_plane);
+      (const uint8_t*)prev_v, (const int32_t*)i_frame, (uint8_t*)inter,
+      (int32_t*)mvx, (int32_t*)mvy, (uint8_t*)pred_y, (uint8_t*)pred_u,
+      (uint8_t*)pred_v, nby, nbx, yr, first_mb_row, total_mb_rows, halo,
+      as_plane);
   return (int)cudaGetLastError();
 }
 
-extern "C" int mpeg2_me_luma(const void* cur, const void* prev_y, void* inter,
-                             void* mvx, void* mvy, void* pred_y, int nby,
-                             int nbx, int yr, int iframe, int first_mb_row,
-                             int total_mb_rows, int halo, int as_plane,
-                             void* stream) {
+extern "C" int mpeg2_me_luma(const void* cur, const void* prev_y,
+                             const void* i_frame, void* inter, void* mvx,
+                             void* mvy, void* pred_y, int nby, int nbx, int yr,
+                             int first_mb_row, int total_mb_rows, int halo,
+                             int as_plane, void* stream) {
   if (yr < 1 || yr > MAX_YR) return (int)cudaErrorInvalidValue;
   me_luma_kernel<<<nby * nbx, ME_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)cur, (const uint8_t*)prev_y, (uint8_t*)inter,
-      (int32_t*)mvx, (int32_t*)mvy, (uint8_t*)pred_y, nby, nbx, yr, iframe,
-      first_mb_row, total_mb_rows, halo, as_plane);
+      (const uint8_t*)cur, (const uint8_t*)prev_y, (const int32_t*)i_frame,
+      (uint8_t*)inter, (int32_t*)mvx, (int32_t*)mvy, (uint8_t*)pred_y, nby,
+      nbx, yr, first_mb_row, total_mb_rows, halo, as_plane);
   return (int)cudaGetLastError();
 }
 

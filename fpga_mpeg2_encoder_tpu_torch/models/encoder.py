@@ -14,9 +14,17 @@ launch their kernels, on the CPU they run their plain versions.
 
 The only sequential dependency is frame order (P-frames predict from the
 previous frame's reconstruction, the loop the reference closes through
-mem_ref_Y/UV, RTL/mpeg2encoder.v:2418-2424 -> 1387-1390): a Python loop over
-frames that keeps the reconstruction and the sequence buffer on the device
-and never waits for it, so the host reads back once per chunk.
+mem_ref_Y/UV, RTL/mpeg2encoder.v:2418-2424 -> 1387-1390).
+
+The compiled programs, under the JAX package's names: ``encode_frame_device``
+(one frame, its payload stored) and ``encode_gop_scan`` (a chunk of frames
+appended to one sequence buffer, the GOP position and the timecode carried
+on the device as 0-d int32 tensors).  On a card each replays a CUDA graph of
+one frame's step (runtime/graphs.py), cached per geometry, knobs and caps;
+on the CPU the same step runs eagerly.  The un-compiled ``_core`` functions
+stay beside them, as the JAX package keeps encode_gop_scan_core beside the
+jit: a Python loop over frames with the GOP state as host ints.
+``Encoder`` and parallel/dp.py go through the programs.
 
 Packing buffers are sized by caps (default 256 KB/frame) with exact overflow
 detection; an overflowing frame or chunk is encoded again on the device at
@@ -37,6 +45,7 @@ from ..ops import colorspace, entropy
 from ..ops.kernels import me as k_me
 from ..ops.kernels import pack as k_pack
 from ..ops.kernels import transform as k_transform
+from ..runtime import graphs
 from ..runtime.state import EncoderState
 from ..utils.logging import SequenceStats
 
@@ -45,10 +54,10 @@ DEFAULT_FRAME_CAP = 65536    # words/frame budget (256 KB)
 
 
 def symbolize_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
-                         i_frame: int, frame_no: int, *, yr: int, ur: int,
-                         q_level: int):
+                         i_frame, frame_no, *, yr: int, ur: int, q_level: int):
     """The pipeline up to symbolisation: (recon_y, recon_u, recon_v, slots
-    (2 + nby, S) int32)."""
+    (2 + nby, S) int32).  ``i_frame`` and ``frame_no`` are ints or 0-d
+    tensors on the frame's device."""
     y, u, v = colorspace.subsample_420(y444, u444, v444)
     mr = k_me.estimate_and_predict_planes(y, u, v, prev_y, prev_u, prev_v,
                                           i_frame == 0, yr, ur)
@@ -60,7 +69,7 @@ def symbolize_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
 
 
 def encode_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
-                      i_frame: int, frame_no: int, *, yr: int, ur: int,
+                      i_frame, frame_no, *, yr: int, ur: int,
                       q_level: int, row_cap: int, frame_cap: int):
     """Single-frame pipeline.  Returns (recon_y, recon_u, recon_v,
     frame_words (frame_cap,) int64, frame_bits, overflow flag), the last two
@@ -71,6 +80,29 @@ def encode_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
     row_words, row_bits, pack_ovf = k_pack.pack_slots(slots, row_cap)
     fwords, fbits = k_pack.merge_rows(row_words, row_bits, frame_cap)
     return recon_y, recon_u, recon_v, fwords, fbits, pack_ovf | (fbits > 32 * frame_cap)
+
+
+def _gop_step(carry, frame, pframes_count, *, yr: int, ur: int, q_level: int,
+              row_cap: int, frame_cap: int, new_bits=None):
+    """One frame of encode_gop_scan_core, JAX's scan ``step``: carry (prev
+    (recon_y, recon_u, recon_v), seq_words, seq_bits, overflow, i_frame,
+    frame_no) and frame (y444, u444, v444) -> (the next carry, (the frame's
+    bits, its GOP position)).  The frame's rows go into seq_words in place;
+    the new seq_bits into ``new_bits`` where given (k_pack.merge_append).
+    The GOP position and the frame number are host ints or 0-d tensors, and
+    stay what they are."""
+    prev, seq_w, seq_b, ovf, i_f, fno = carry
+    ry, ru, rv, slots = symbolize_frame_core(*frame, *prev, i_f, fno,
+                                             yr=yr, ur=ur, q_level=q_level)
+    row_words, row_bits, pack_ovf = k_pack.pack_slots(slots, row_cap)
+    # the frame's rows straight into the sequence buffer: one launch
+    seq_w, seq_b, fb, frame_ovf = k_pack.merge_append(seq_w, seq_b, row_words, row_bits,
+                                                      frame_cap, new_bits=new_bits)
+    if torch.is_tensor(i_f):
+        i_next = torch.where(i_f >= pframes_count, 0, i_f + 1)
+    else:
+        i_next = 0 if i_f >= pframes_count else i_f + 1
+    return ((ry, ru, rv), seq_w, seq_b, ovf | pack_ovf | frame_ovf, i_next, fno + 1), (fb, i_f)
 
 
 def encode_gop_scan_core(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
@@ -89,25 +121,171 @@ def encode_gop_scan_core(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
     seq_w = torch.zeros(seq_cap + frame_cap + 1, dtype=torch.int64, device=dev)
     seq_b = torch.zeros((), dtype=torch.int64, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
-    prev = (prev_y, prev_u, prev_v)
-    i_f, fno = i_frame0, frame_no0
+    carry = ((prev_y, prev_u, prev_v), seq_w, seq_b, ovf, i_frame0, frame_no0)
     frame_bits, frame_ifs = [], []
     for k in range(frames_y.shape[0]):
-        ry, ru, rv, slots = symbolize_frame_core(
-            frames_y[k], frames_u[k], frames_v[k], *prev, i_f, fno,
-            yr=yr, ur=ur, q_level=q_level)
-        row_words, row_bits, pack_ovf = k_pack.pack_slots(slots, row_cap)
-        # the frame's rows straight into the sequence buffer: one launch
-        seq_w, seq_b, fb, frame_ovf = k_pack.merge_append(seq_w, seq_b, row_words,
-                                                          row_bits, frame_cap)
-        ovf = ovf | pack_ovf | frame_ovf
-        prev = (ry, ru, rv)
+        carry, (fb, i_f) = _gop_step(carry, (frames_y[k], frames_u[k], frames_v[k]),
+                                     pframes_count, yr=yr, ur=ur, q_level=q_level,
+                                     row_cap=row_cap, frame_cap=frame_cap)
         frame_bits.append(fb)
         frame_ifs.append(i_f)
-        i_f = 0 if i_f >= pframes_count else i_f + 1
-        fno += 1
+    prev, seq_w, seq_b, ovf, i_f, fno = carry
     ovf = ovf | (seq_b > 32 * seq_cap)
     return (*prev, seq_w, seq_b, i_f, fno, ovf, torch.stack(frame_bits), frame_ifs)
+
+
+def _copy_in(dst: torch.Tensor, src, name: str) -> None:
+    """Copy the plane ``src`` into a program's tensor ``dst``: the same
+    shape, dtype and device (never a move between devices)."""
+    if src.device != dst.device or src.dtype != dst.dtype \
+            or tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: {tuple(src.shape)} {src.dtype} on {src.device}, the "
+                         f"program takes {tuple(dst.shape)} {dst.dtype} on {dst.device}")
+    dst.copy_(src)
+
+
+def _planes(dev, h: int, w: int, sub: int):
+    """Zeroed uint8 planes: (H, W), then two of (H/sub, W/sub)."""
+    return tuple(torch.zeros(shape, dtype=torch.uint8, device=dev)
+                 for shape in ((h, w), (h // sub, w // sub), (h // sub, w // sub)))
+
+
+class _FrameProgram:
+    """encode_frame_device's inputs and its step (encode_frame_core on
+    them) on one device: the frame's 4:4:4 planes, the reference planes and
+    the GOP position and frame number as 0-d int32 tensors."""
+
+    def __init__(self, dev, h, w, *, yr, ur, q_level, row_cap, frame_cap):
+        self.frame, self.prev = _planes(dev, h, w, 1), _planes(dev, h, w, 2)
+        self.i_frame, self.frame_no = entropy.gop_scalar(0, dev), entropy.gop_scalar(0, dev)
+        kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap)
+        self.step = graphs.Step(lambda: encode_frame_core(
+            *self.frame, *self.prev, self.i_frame, self.frame_no, **kw), dev)
+
+    def __call__(self, planes, prev, i_frame, frame_no):
+        for dst, src, name in zip(self.frame + self.prev, tuple(planes) + tuple(prev),
+                                  ("y444", "u444", "v444", "prev_y", "prev_u", "prev_v")):
+            _copy_in(dst, src, name)
+        entropy.gop_scalar(i_frame, self.i_frame.device, out=self.i_frame)
+        entropy.gop_scalar(frame_no, self.frame_no.device, out=self.frame_no)
+        return self.step()
+
+
+class _GopProgram:
+    """encode_gop_scan's carry and its step on one device.  The step is
+    _gop_step, encode_gop_scan_core's frame, on the program's tensors: frame
+    ``frame`` in, the recon carried in ``prev``, the frame's rows appended to
+    the sequence buffer, the overflow ORed, the frame's bits and GOP
+    position written at index ``k`` of the per-frame outputs, and the GOP
+    position, the frame number and k advanced on the device.  The per-frame
+    outputs hold ``frames_cap`` frames."""
+
+    def __init__(self, dev, h, w, *, yr, ur, q_level, row_cap, frame_cap, seq_cap,
+                 frames_cap):
+        self.frame, self.prev = _planes(dev, h, w, 1), _planes(dev, h, w, 2)
+        self.i_frame, self.frame_no, self.pframes = (entropy.gop_scalar(0, dev)
+                                                     for _ in range(3))
+        # guard margin per the append_bitstring sizing contract, as in
+        # encode_gop_scan_core
+        self.seq_words = torch.zeros(seq_cap + frame_cap + 1, dtype=torch.int64, device=dev)
+        self.seq_bits, self.new_bits = (torch.zeros((), dtype=torch.int64, device=dev)
+                                        for _ in range(2))
+        self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        self.k = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.frame_bits = torch.zeros(frames_cap, dtype=torch.int64, device=dev)
+        self.frame_ifs = torch.zeros(frames_cap, dtype=torch.int32, device=dev)
+        self.seq_cap, self.frames_cap = seq_cap, frames_cap
+        self._kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap)
+        self.step = graphs.Step(self._step, dev)
+
+    def _step(self) -> None:
+        carry = (self.prev, self.seq_words, self.seq_bits, self.overflow, self.i_frame,
+                 self.frame_no)
+        (prev, _, seq_b, ovf, i_f, fno), (fb, i_this) = _gop_step(
+            carry, self.frame, self.pframes, **self._kw, new_bits=self.new_bits)
+        self.frame_bits.scatter_(0, self.k, fb.view(1))
+        self.frame_ifs.scatter_(0, self.k, i_this.view(1))
+        # the carry into the program's tensors (seq_words was written in place)
+        for dst, src in zip((*self.prev, self.seq_bits, self.overflow, self.i_frame,
+                             self.frame_no), (*prev, seq_b, ovf, i_f, fno)):
+            dst.copy_(src)
+        self.k.add_(1)
+
+    def start(self, prev, i_frame0, frame_no0, pframes_count) -> None:
+        """Set the carry for a new chunk: the reference planes, the GOP
+        state, an empty sequence buffer and no overflow."""
+        for dst, src, name in zip(self.prev, prev, ("prev_y", "prev_u", "prev_v")):
+            _copy_in(dst, src, name)
+        for dst, src in ((self.i_frame, i_frame0), (self.frame_no, frame_no0),
+                         (self.pframes, pframes_count)):
+            entropy.gop_scalar(src, dst.device, out=dst)
+        for t in (self.seq_words, self.seq_bits, self.overflow, self.k):
+            t.zero_()
+
+    def feed(self, y444, u444, v444) -> None:
+        """One frame through the step."""
+        for dst, src, name in zip(self.frame, (y444, u444, v444), ("y444", "u444", "v444")):
+            _copy_in(dst, src, name)
+        self.step()
+
+    def result(self, n_frames: int):
+        ovf = self.overflow | (self.seq_bits > 32 * self.seq_cap)
+        return (*self.prev, self.seq_words, self.seq_bits, self.i_frame, self.frame_no, ovf,
+                self.frame_bits[:n_frames], self.frame_ifs[:n_frames])
+
+
+def encode_frame_device(y444, u444, v444, prev_y, prev_u, prev_v, i_frame, frame_no, *,
+                        yr: int, ur: int, q_level: int, row_cap: int, frame_cap: int):
+    """encode_frame_core as a compiled program (JAX models/encoder.py:136):
+    one frame, its payload stored by the merge kernel.  ``i_frame`` and
+    ``frame_no`` are 0-d int32 tensors on the frame's device, or ints.
+    Returns encode_frame_core's six values.
+
+    On a card a captured graph of the step is replayed: the host enqueues the
+    copies of the six planes and the two GOP scalars into the program's
+    inputs (8 launches) and the graph (1).  The outputs are the graph's
+    tensors, rewritten by the next call of a program of the same geometry,
+    knobs and caps: clone what you keep.  On the CPU the step runs
+    eagerly."""
+    h, w = y444.shape
+    kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap)
+    dev = y444.device
+    prog = graphs.cached(("frame", dev, h, w, yr, ur, q_level, row_cap, frame_cap),
+                         lambda: _FrameProgram(dev, h, w, **kw))
+    return prog((y444, u444, v444), (prev_y, prev_u, prev_v), i_frame, frame_no)
+
+
+def encode_gop_scan(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
+                    i_frame0, frame_no0, pframes_count, *, yr: int, ur: int,
+                    q_level: int, row_cap: int, frame_cap: int, seq_cap: int):
+    """encode_gop_scan_core as a compiled program (JAX models/encoder.py:268):
+    (F, H, W) frame stacks appended to one sequence buffer, the GOP position
+    and the frame number carried on the device.  ``i_frame0``,
+    ``frame_no0`` and ``pframes_count`` are 0-d int32 tensors on the
+    frames' device, or ints.  Returns JAX's ten values: (recon_y, recon_u,
+    recon_v, seq_words (seq_cap + frame_cap + 1,) int64, seq_bits, i_frame,
+    frame_no (0-d int32), overflow, frame_bits (F,) int64, frame_i_frames
+    (F,) int32).
+
+    On a card one frame's step is a captured graph, replayed F times: per
+    frame the host enqueues the copies of the frame's three planes into the
+    step's inputs and the graph's launch (4 launches), and per chunk 12
+    more (the carry set, the overflow's last term).  The outputs are the
+    program's tensors, rewritten by the next call of a program of the same
+    geometry, knobs and caps: clone what you keep.  On the CPU the step
+    runs eagerly."""
+    f, h, w = frames_y.shape
+    frames_cap = max(64, 1 << (f - 1).bit_length())
+    kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap,
+              seq_cap=seq_cap)
+    dev = frames_y.device
+    prog = graphs.cached(("gop", dev, h, w, yr, ur, q_level, row_cap, frame_cap, seq_cap,
+                          frames_cap),
+                         lambda: _GopProgram(dev, h, w, **kw, frames_cap=frames_cap))
+    prog.start((prev_y, prev_u, prev_v), i_frame0, frame_no0, pframes_count)
+    for k in range(f):
+        prog.feed(frames_y[k], frames_u[k], frames_v[k])
+    return prog.result(f)
 
 
 def bound_caps(width: int, height: int) -> Tuple[int, int]:
@@ -151,6 +329,9 @@ class Encoder:
     * chunked (``encode`` with ``chunk_frames > 1``, or ``push_chunk``): frames
       staged on the device and encoded in one pass, with one payload download
       per chunk - the high-throughput path.
+    Both go through the compiled programs (``encode_frame_device``,
+    ``encode_gop_scan``), the overflow retry too, and keep clones of their
+    outputs; the GOP position and the frame number stay host ints here.
 
     ``device`` is where the encoder runs: "cuda" launches the kernels and
     raises if no card is present; "cpu" runs their plain versions.
@@ -276,18 +457,19 @@ class Encoder:
             self._prev = self._zero_prev()
         planes = tuple(self._upload(p) for p in (y, u, v))
         args = (*planes, *self._prev, self._i_frame, self._frame_no)
-        ry, ru, rv, fw, fb, ovf = encode_frame_core(
+        ry, ru, rv, fw, fb, ovf = encode_frame_device(
             *args, **self._kw(), row_cap=self.row_cap, frame_cap=self.frame_cap)
         if bool(ovf):
             # rare: the frame exceeded the caps; encode it again at the bounds
             row_cap, frame_cap = bound_caps(seq.width, seq.height)
-            ry, ru, rv, fw, fb, ovf = encode_frame_core(
+            ry, ru, rv, fw, fb, ovf = encode_frame_device(
                 *args, **self._kw(), row_cap=row_cap, frame_cap=frame_cap)
             if bool(ovf):
                 raise RuntimeError("frame exceeded the analytic worst-case buffer bound")
         nbits = int(fb)
         payload = _download_payload(fw, nbits)
-        self._prev = (ry, ru, rv)
+        # the program's outputs are rewritten by its next call
+        self._prev = (ry.clone(), ru.clone(), rv.clone())
         self._payload.append(payload)
         self.stats.add(index=self._frame_no, i_frame=self._i_frame, bits=nbits,
                        wall_s=time.perf_counter() - t_start)
@@ -305,25 +487,26 @@ class Encoder:
         stacks = [self._upload(np.stack([np.asarray(f[i]) for f in frames]))
                   for i in range(3)]
         args = (*stacks, *self._prev, self._i_frame, self._frame_no, seq.pframes_count)
-        ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gop_scan_core(
+        ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gop_scan(
             *args, **self._kw(), row_cap=self.row_cap, frame_cap=self.frame_cap,
             seq_cap=self.frame_cap * max(1, len(frames) // 4))
         if bool(ovf):
             # rare: some frame or the chunk exceeded the caps; encode the
             # chunk again at the bounds
             row_cap, frame_cap = bound_caps(seq.width, seq.height)
-            ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gop_scan_core(
+            ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gop_scan(
                 *args, **self._kw(), row_cap=row_cap, frame_cap=frame_cap,
                 seq_cap=frame_cap * len(frames))
             if bool(ovf):
                 raise RuntimeError("chunk exceeded the analytic worst-case buffer bound")
-        self._prev = (ry, ru, rv)
+        # the program's outputs are rewritten by its next call
+        self._prev = (ry.clone(), ru.clone(), rv.clone())
         self._payload.append(_download_payload(sw, int(sb)))
-        for k, (bits, i_frame) in enumerate(zip(fbits.tolist(), fifs)):
+        for k, (bits, i_frame) in enumerate(zip(fbits.tolist(), fifs.tolist())):
             self.stats.add(index=self._frame_no + k, i_frame=i_frame, bits=bits,
                            wall_s=0.0)
-        self._i_frame = i_f
-        self._frame_no = fno
+        self._i_frame = int(i_f)
+        self._frame_no = int(fno)
 
     def finish(self, stop_mode: str = "clean") -> bytes:
         """End the sequence (i_sequence_stop semantics) and return the stream.

@@ -32,6 +32,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core import tables as T
 
@@ -137,24 +138,62 @@ def _s32(v: int) -> int:
     return v - (1 << 32) if v >= 1 << 31 else v
 
 
-def _header_rows(i_frame: int, frame_no: int, s: int, device) -> torch.Tensor:
-    """GOP + picture header rows (RTL:2650-2698) as a (2, s) slot grid."""
-    insec = frame_no % 24
-    second = (frame_no // 24) % 60
-    minute = (frame_no // (24 * 60)) % 60
-    hour = min(frame_no // (24 * 3600), 63)
-    gop_codes = [1, 0xB8, hour, minute, 64 | second, insec, 2]
-    gop_lens = [24, 8, 6, 6, 7, 6, 2] if i_frame == 0 else [0] * 7
-    is_p = i_frame != 0
-    pic_codes = [1, i_frame, 0x20000 if is_p else 0x10000, 0x380 if is_p else 0,
-                 1, 0xB58111, 0x1BC000]
-    pic_lens = [24, 18, 19, 11 if is_p else 3, 24, 24, 24]
-    hdr = [[c | (n << SLOT_LEN_SHIFT) for c, n in zip(gop_codes, gop_lens)],
-           [c | (n << SLOT_LEN_SHIFT) for c, n in zip(pic_codes, pic_lens)]]
+def gop_scalar(v, device, out=None) -> torch.Tensor:
+    """A GOP position, frame number or I-frame flag as a 0-d tensor on
+    ``device``: a tensor is used as it is (it must lie there already), a
+    Python int or bool is filled in on the device as int32, never uploaded,
+    so neither waits for the device and both can be captured in a CUDA
+    graph.  With ``out`` (a 0-d tensor there) the value is copied or filled
+    into it, and ``out`` is returned."""
+    if torch.is_tensor(v):
+        dev = torch.device(device)
+        if v.dim() != 0 or v.device.type != dev.type \
+                or dev.index not in (None, v.device.index):
+            raise ValueError(f"GOP state {tuple(v.shape)} on {v.device}: want a 0-d "
+                             f"tensor on {dev}")
+        return v if out is None else out.copy_(v)
+    if out is not None:
+        return out.fill_(int(v))
+    return torch.full((), int(v), dtype=torch.int32, device=device)
+
+
+def _header_table() -> np.ndarray:
+    """The constant part of the GOP + picture header slots (RTL:2650-2698):
+    (2 kinds, I then P, 14 slots, GOP row then picture row) packed
+    code | len << 27; _header_rows adds the timecode and the GOP position to
+    the codes.  A P-frame's GOP slots keep their codes at length 0."""
+    gop_codes = [1, 0xB8, 0, 0, 64, 0, 2]
+    pic_codes = [1, 0, 0x10000, 0, 1, 0xB58111, 0x1BC000]
+    tab = np.zeros((2, 14), np.int64)
+    for is_p in (0, 1):
+        gop_lens = [0] * 7 if is_p else [24, 8, 6, 6, 7, 6, 2]
+        pic_lens = [24, 18, 19, 11 if is_p else 3, 24, 24, 24]
+        tab[is_p] = [c | n << SLOT_LEN_SHIFT for c, n in
+                     zip(gop_codes + pic_codes, gop_lens + pic_lens)]
+    return tab
+
+
+_TABLES["header"] = _header_table()
+
+
+def _header_rows(i_frame, frame_no, s: int, device) -> torch.Tensor:
+    """GOP + picture header rows (RTL:2650-2698) as a (2, s) slot grid,
+    formed on the device from the GOP position and the frame number (0-d
+    tensors, or Python ints), as the JAX package forms them in-trace."""
+    i_f = gop_scalar(i_frame, device).to(torch.int64)
+    fno = gop_scalar(frame_no, device).to(torch.int64)
+    is_p = i_f != 0
+    hour = (fno // (24 * 3600)).clamp(max=63)
+    minute = (fno // (24 * 60)) % 60
+    second = (fno // 24) % 60
+    insec = fno % 24
+    p = is_p.to(torch.int64)
+    # added to the codes of GOP slots 2-5 and picture slots 1-3
+    dyn = torch.stack([hour, minute, second, insec, i_f, p * 0x10000, p * 0x380])
+    dyn = torch.cat([F.pad(dyn[:4], (2, 1)), F.pad(dyn[4:], (1, 3))])
+    tab = _device_table("header", torch.device(device))
     rows = torch.zeros((2, s), dtype=torch.int32, device=device)
-    for r, vals in enumerate(hdr):
-        for k, v in enumerate(vals):
-            rows[r, k] = _s32(v)        # a fill on the device: no upload, no wait
+    rows[:, :7] = (torch.where(is_p, tab[1], tab[0]) + dyn).view(2, 7)
     return rows
 
 
@@ -189,8 +228,8 @@ def symbolize_frame(
     inter: torch.Tensor,      # (nby, nbx) bool
     mvx: torch.Tensor,        # (nby, nbx) int32 half-pel
     mvy: torch.Tensor,
-    i_frame: int,             # GOP position (0 => I-frame)
-    frame_no: int,            # frames since sequence start (timecode)
+    i_frame,                  # GOP position (0 => I-frame): 0-d tensor or int
+    frame_no,                 # frames since sequence start (timecode): the same
     q_level: int,
     first_row: int = 0,       # frame MB row of row 0 (slice-row sharding)
     include_headers: bool = True,   # False: slice rows only (the sharded path
@@ -210,10 +249,10 @@ def symbolize_frame(
 
 
 def ac_inputs(quant_zig: torch.Tensor, inter: torch.Tensor, mvx: torch.Tensor,
-              mvy: torch.Tensor, i_frame: int, q_level: int, first_row: int = 0):
+              mvy: torch.Tensor, i_frame, q_level: int, first_row: int = 0):
     """Everything of a frame's slice rows but the AC symbols: returns the
     operands (zmod, small) of ac_slot_grid.  Slice headers number the rows
-    from ``first_row``."""
+    from ``first_row``; ``i_frame`` is a 0-d tensor or an int."""
     nby, nbx = inter.shape
     dev = inter.device
     zig = quant_zig.to(torch.int64)
@@ -221,7 +260,7 @@ def ac_inputs(quant_zig: torch.Tensor, inter: torch.Tensor, mvx: torch.Tensor,
     nz = intra[:, :, None] | (zig != 0).any(-1)                   # (nby, nbx, 6)
     cbp = sum(nz[..., t].to(torch.int64) << (5 - t) for t in range(6))
 
-    is_p = i_frame != 0
+    is_p = gop_scalar(i_frame, dev) != 0
     # macroblock type (RTL:2722-2731)
     cbp0 = inter & (cbp == 0)
     type_code = torch.where(intra & is_p, 0x23, torch.where(cbp0, 0x09, 0x03))

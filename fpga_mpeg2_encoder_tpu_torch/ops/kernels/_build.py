@@ -12,6 +12,7 @@ nor a card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import importlib.util
@@ -35,10 +36,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.  pack_symbols has no kernel of its
 # own and no count: its launches are pack_slots'.  merge_rows and
-# merge_append launch the one merge kernel and share its count.
+# merge_append launch the one merge kernel and share its count.  A launch
+# made while a CUDA graph is captured runs only when the graph is replayed:
+# it goes to the capture's tally (``tally_into``), and each replay adds the
+# tally here (``add_launches``), so the counts are the same as if each
+# replayed step had launched its kernels one by one.
 LAUNCHES: Dict[str, int] = {"transform": 0, "acsym": 0, "pack_slots": 0,
                             "merge_rows": 0, "me_fused": 0, "me_luma": 0,
                             "chroma_pred": 0}
+_tally: Optional[Dict[str, int]] = None     # the open capture's, if any
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -47,8 +53,8 @@ _SIGNATURES = {
     "mpeg2_acsym": [_P, _P, _P, _I, _I, _P],
     "mpeg2_pack_slots": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mpeg2_merge_rows": [_P] * 7 + [_I, _I, _I, ctypes.c_longlong, _P],
-    "mpeg2_me_fused": [_P] * 10 + [_I] * 8 + [_P],
-    "mpeg2_me_luma": [_P] * 6 + [_I] * 8 + [_P],
+    "mpeg2_me_fused": [_P] * 11 + [_I] * 7 + [_P],
+    "mpeg2_me_luma": [_P] * 7 + [_I] * 7 + [_P],
     "mpeg2_chroma_pred": [_P] * 7 + [_I] * 4 + [_P],
 }
 
@@ -59,6 +65,40 @@ _lib: Optional[ctypes.CDLL] = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count(counter: str) -> None:
+    """One launch of kernel ``counter``: into the open capture's tally, or
+    into LAUNCHES.  A launch captured with no tally open raises: its count
+    would be lost at every replay."""
+    if _tally is not None:
+        _tally[counter] = _tally.get(counter, 0) + 1
+    elif torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{counter}: a kernel captured in a CUDA graph outside "
+                           f"tally_into(): its launches would not be counted")
+    else:
+        LAUNCHES[counter] += 1
+
+
+@contextlib.contextmanager
+def tally_into(tally: Dict[str, int]):
+    """Within the block, launches count into ``tally`` instead of LAUNCHES:
+    the launches of a CUDA graph's capture, or of a warm-up that the
+    counts must not see."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("tally_into() does not nest")
+    _tally = tally
+    try:
+        yield tally
+    finally:
+        _tally = None
+
+
+def add_launches(tally: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` replays of a graph whose capture counted ``tally``."""
+    for k, n in tally.items():
+        LAUNCHES[k] += n * times
 
 
 def cuda_tool(name: str) -> str:
@@ -145,7 +185,8 @@ def library() -> ctypes.CDLL:
 def launch(name: str, counter: Optional[str], device: torch.device, *args) -> None:
     """Call C entry point ``name`` with ``args`` (tensors become device
     pointers) and the current stream of ``device``; raise on a launch error.
-    Adds one to LAUNCHES[counter]; a test probe passes None."""
+    Counts one launch of ``counter`` (see ``count``); a test probe passes
+    None."""
     lib = library()
     conv = [t.data_ptr() if torch.is_tensor(t) else t for t in args]
     with torch.cuda.device(device):
@@ -153,7 +194,7 @@ def launch(name: str, counter: Optional[str], device: torch.device, *args) -> No
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     if counter is not None:
-        LAUNCHES[counter] += 1
+        count(counter)
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

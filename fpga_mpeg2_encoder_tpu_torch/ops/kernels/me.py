@@ -40,7 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import motion
+from .. import entropy, motion
 from . import _build
 
 MAX_YR = 6   # csrc/me.cu's window size: vector_level <= 3
@@ -50,6 +50,14 @@ def _meta(nby: int, nbx: int, dev):
     return (torch.empty((nby, nbx), dtype=torch.bool, device=dev),
             torch.empty((nby, nbx), dtype=torch.int32, device=dev),
             torch.empty((nby, nbx), dtype=torch.int32, device=dev))
+
+
+def _gop_position(is_iframe, dev) -> torch.Tensor:
+    """The kernels' I/P operand: a 0-d int32 on the device, 0 for an
+    I-frame, from a Python bool or a 0-d bool or int tensor (nonzero: an
+    I-frame) on ``dev``, formed there, so that nothing waits for the device
+    and a CUDA graph replays the launch with the flag the step formed."""
+    return (entropy.gop_scalar(is_iframe, dev) == 0).to(torch.int32)
 
 
 def _pred(nby: int, nbx: int, bs: int, as_plane: bool, dev) -> torch.Tensor:
@@ -77,14 +85,15 @@ def _check_planes(nby: int, nbx: int, halo: bool, luma=None, chroma=(),
                      align=chroma_align)
 
 
-def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe: bool, yr: int,
+def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe, yr: int,
                           ur: int, first_mb_row: int = 0,
                           total_mb_rows: Optional[int] = None, halo: bool = False,
                           as_plane: bool = False) -> Tuple[torch.Tensor, ...]:
     """cur_y (H, W) uint8; prev_y (H, W) uint8, or (H + 16, W) with ``halo``;
     prev_u/prev_v (H/2, W/2), or (H/2 + 8, W/2) with ``halo`` -> (inter
     (nby, nbx) bool, mvx, mvy (nby, nbx) int32 half-pel, pred_y, pred_u,
-    pred_v uint8)."""
+    pred_v uint8).  ``is_iframe``: a bool, or a 0-d bool or int tensor on
+    the planes' device (nonzero: an I-frame)."""
     nby, nbx, total = _band(cur_y, yr, total_mb_rows)
     if _build.on_cpu(cur_y, prev_y, prev_u, prev_v):
         if not halo:
@@ -92,7 +101,7 @@ def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe: bool, yr: in
             prev_u = motion.pad_halo(prev_u, motion.CHROMA_HALO)
             prev_v = motion.pad_halo(prev_v, motion.CHROMA_HALO)
         return tuple(motion.estimate_and_predict_local(
-            cur_y, prev_y, prev_u, prev_v, bool(is_iframe), yr, ur, first_mb_row,
+            cur_y, prev_y, prev_u, prev_v, is_iframe, yr, ur, first_mb_row,
             total, as_plane))
     _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16), align=8)
     _check_planes(nby, nbx, halo, prev_y, ((prev_u, "prev_u"), (prev_v, "prev_v")))
@@ -101,12 +110,12 @@ def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe: bool, yr: in
     py, pu, pv = (_pred(nby, nbx, 16, as_plane, dev), _pred(nby, nbx, 8, as_plane, dev),
                   _pred(nby, nbx, 8, as_plane, dev))
     _build.launch("mpeg2_me_fused", "me_fused", dev, cur_y, prev_y, prev_u, prev_v,
-                  inter, mvx, mvy, py, pu, pv, nby, nbx, yr, int(bool(is_iframe)),
-                  first_mb_row, total, int(halo), int(as_plane))
+                  _gop_position(is_iframe, dev), inter, mvx, mvy, py, pu, pv, nby, nbx,
+                  yr, first_mb_row, total, int(halo), int(as_plane))
     return inter, mvx, mvy, py, pu, pv
 
 
-def motion_estimate(cur_y, prev_y, is_iframe: bool, yr: int, first_mb_row: int = 0,
+def motion_estimate(cur_y, prev_y, is_iframe, yr: int, first_mb_row: int = 0,
                     total_mb_rows: Optional[int] = None, halo: bool = False,
                     as_plane: bool = False) -> Tuple[torch.Tensor, ...]:
     """Luma half of motion_estimate_fused: (inter, mvx, mvy, pred_y)."""
@@ -115,16 +124,16 @@ def motion_estimate(cur_y, prev_y, is_iframe: bool, yr: int, first_mb_row: int =
         if not halo:
             prev_y = motion.pad_halo(prev_y, motion.LUMA_HALO)
         inter, mvx, mvy, pred_y = motion.estimate_luma(
-            cur_y, prev_y, bool(is_iframe), yr, first_mb_row, total)
+            cur_y, prev_y, is_iframe, yr, first_mb_row, total)
         return inter, mvx, mvy, motion.to_planes(pred_y) if as_plane else pred_y
     _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16), align=8)
     _check_planes(nby, nbx, halo, prev_y)
     dev = cur_y.device
     inter, mvx, mvy = _meta(nby, nbx, dev)
     py = _pred(nby, nbx, 16, as_plane, dev)
-    _build.launch("mpeg2_me_luma", "me_luma", dev, cur_y, prev_y, inter, mvx, mvy, py,
-                  nby, nbx, yr, int(bool(is_iframe)), first_mb_row, total,
-                  int(halo), int(as_plane))
+    _build.launch("mpeg2_me_luma", "me_luma", dev, cur_y, prev_y,
+                  _gop_position(is_iframe, dev), inter, mvx, mvy, py, nby, nbx, yr,
+                  first_mb_row, total, int(halo), int(as_plane))
     return inter, mvx, mvy, py
 
 
@@ -154,7 +163,7 @@ def chroma_pred(prev_u, prev_v, inter, mvx, mvy, ur: int, halo: bool = False,
 
 
 def estimate_and_predict_planes(cur_y, cur_u, cur_v, prev_y, prev_u, prev_v,
-                                is_iframe: bool, yr: int, ur: int
+                                is_iframe, yr: int, ur: int
                                 ) -> motion.MotionResult:
     """The main path's motion stage: motion.estimate_and_predict_planes'
     contract (predictions as planes), through the fused kernel."""
@@ -163,7 +172,7 @@ def estimate_and_predict_planes(cur_y, cur_u, cur_v, prev_y, prev_u, prev_v,
         cur_y, prev_y, prev_u, prev_v, is_iframe, yr, ur, as_plane=True))
 
 
-def estimate_and_predict_local(cur_y, prev_y_h, prev_u_h, prev_v_h, is_iframe: bool,
+def estimate_and_predict_local(cur_y, prev_y_h, prev_u_h, prev_v_h, is_iframe,
                                yr: int, ur: int, first_mb_row: int, total_mb_rows: int,
                                as_planes: bool = False) -> motion.MotionResult:
     """motion.estimate_and_predict_local's contract (the band form), through

@@ -16,7 +16,9 @@ chained scan (decoupled look-back), warp 0 reading 32 predecessors' status
 words at once.  Each output word is written
 once by a plain store.  The look-back's state lives in a buffer per device
 and stream, zeroed when it is allocated; the kernel's last block leaves it
-zeroed for the next call.  The merge kernel gives each output word one
+zeroed for the next call.  A buffer is never freed: a CUDA graph captured
+with it holds its address (runtime/graphs.py), so a call that needs more
+tiles gets a larger buffer and the old one is kept.  The merge kernel gives each output word one
 thread, in a fixed grid of two blocks per SM: every block scans the row
 lengths, and a thread finds the rows under its word by a binary search and
 funnel-shifts at most two words of each.  merge_rows stores every word of
@@ -33,7 +35,7 @@ backends.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,16 +47,25 @@ TILE = 4096                  # slots per pack_slots block (csrc/pack.cu TILE)
 # (device, stream) -> the look-back buffer of pack_slots as int64: the
 # counter and a spare word, then one status word per tile, `capacity` of them
 _lookback: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# the buffers that larger ones replaced, kept for the graphs that hold them
+_retired: List[torch.Tensor] = []
 
 
 def _lookback_buffer(device: torch.device, tiles: int) -> Tuple[torch.Tensor, int]:
     """The look-back buffer for a call of ``tiles`` tiles on the current
     stream of ``device``, and its capacity in tiles.  A new buffer is zeroed;
-    the kernel leaves it zeroed for the next call on the same stream."""
+    the kernel leaves it zeroed for the next call on the same stream.  One
+    that is too small is replaced by one at least twice its capacity and
+    kept in ``_retired``, never freed: a graph captured with it replays with
+    its address."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     buf = _lookback.get(key)
     if buf is None or buf.numel() - 2 < tiles:
-        buf = torch.zeros(2 + max(tiles, 1024), dtype=torch.int64, device=device)
+        grown = 0
+        if buf is not None:
+            _retired.append(buf)
+            grown = 2 * (buf.numel() - 2)
+        buf = torch.zeros(2 + max(tiles, 1024, grown), dtype=torch.int64, device=device)
         _lookback[key] = buf
     return buf, buf.numel() - 2
 
@@ -109,20 +120,30 @@ def merge_rows(words: torch.Tensor, bits: torch.Tensor, cap_words: int
 
 
 def merge_append(seq: torch.Tensor, seq_bits: torch.Tensor, words: torch.Tensor,
-                 bits: torch.Tensor, frame_cap: int
+                 bits: torch.Tensor, frame_cap: int, new_bits: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """merge_rows(words, bits, frame_cap) appended to the sequence buffer seq
     (N,) int64 at seq_bits () int64, in place, with append_bitstring's
     sizing contract and clamp -> (seq, new seq_bits, frame bits, overflow
-    () bool: frame bits beyond 32 * frame_cap); see bitpack.merge_append."""
-    if _build.on_cpu(seq, seq_bits, words, bits):
-        return bitpack.merge_append(seq, seq_bits, words, bits, frame_cap)
+    () bool: frame bits beyond 32 * frame_cap); see bitpack.merge_append.
+    The new seq_bits is written to ``new_bits`` () int64 where the caller
+    gives one (a buffer of its own, such as a CUDA graph's carry; not
+    seq_bits, which every block of the kernel reads), else to a new tensor."""
+    if new_bits is not None:
+        _build.check(new_bits, "new_bits", torch.int64, ())
+        if new_bits.data_ptr() == seq_bits.data_ptr():
+            raise ValueError("new_bits must not be seq_bits: the kernel reads seq_bits "
+                             "in every block")
+    if _build.on_cpu(seq, seq_bits, words, bits, *(() if new_bits is None else (new_bits,))):
+        seq, nb, fbits, ovf = bitpack.merge_append(seq, seq_bits, words, bits, frame_cap)
+        return seq, nb if new_bits is None else new_bits.copy_(nb), fbits, ovf
     r, c = _merge_checks(words, bits)
     _build.check(seq, "seq", torch.int64, (seq.numel(),))
     _build.check(seq_bits, "seq_bits", torch.int64, ())
     bitpack.check_append_window(seq.numel(), frame_cap)
     dev = words.device
-    new_bits = torch.empty((), dtype=torch.int64, device=dev)
+    if new_bits is None:
+        new_bits = torch.empty((), dtype=torch.int64, device=dev)
     fbits = torch.empty((), dtype=torch.int64, device=dev)
     ovf = torch.empty((), dtype=torch.bool, device=dev)
     _build.launch("mpeg2_merge_rows", "merge_rows", dev, words, bits, seq, seq_bits,

@@ -32,6 +32,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import entropy
+
 LUMA_HALO, CHROMA_HALO = 8, 4    # reference rows above and below a band
 
 
@@ -94,7 +96,7 @@ def pad_halo(plane: torch.Tensor, halo: int) -> torch.Tensor:
 def estimate_luma(
     cur_y: torch.Tensor,       # (Hl, W) uint8: a band of macroblock rows
     prev_y_h: torch.Tensor,    # (Hl + 16, W) uint8: recon band + 8-row halo each side
-    is_iframe: bool,
+    is_iframe,                 # bool, or a 0-d bool or int tensor (nonzero: I-frame)
     yr: int,                   # luma search range
     first_mb_row: int,         # global MB row of local row 0
     total_mb_rows: int,        # global MB row count
@@ -181,18 +183,15 @@ def estimate_luma(
     vals.append(intra_cost)
     idx = _find_min_10(torch.stack(vals, dim=-1))              # (nby, nbx) in 0..9
 
-    inter = (idx != 9) & (not is_iframe)
+    # read through torch.where, never bool(): a device flag needs no wait
+    iflag = entropy.gop_scalar(is_iframe, dev) != 0
+    inter = (idx != 9) & ~iflag
     hy_sel = torch.where(idx == 9, 0, idx // 3 - 1)
     hx_sel = torch.where(idx == 9, 0, idx % 3 - 1)
     # P-frame: mv registers always updated even when intra wins (RTL:1827-1828);
     # I-frame: forced zero (RTL:1820-1825).
-    if is_iframe:
-        mvy = torch.zeros_like(mvy_full)
-        mvx = torch.zeros_like(mvx_full)
-    else:
-        mvy = mvy_full * 2 + hy_sel
-        mvx = mvx_full * 2 + hx_sel
-    mvy, mvx = mvy.to(torch.int32), mvx.to(torch.int32)
+    mvy = torch.where(iflag, 0, mvy_full * 2 + hy_sel).to(torch.int32)
+    mvx = torch.where(iflag, 0, mvx_full * 2 + hx_sel).to(torch.int32)
 
     # ---- luma prediction: selected half-pel grid, or 128 for intra ------------
     # (computed in int32; every value is 0..255, so the uint8 cast is exact)
@@ -234,7 +233,7 @@ def estimate_and_predict_local(
     prev_y_h: torch.Tensor,    # (Hl + 16, W): recon band + 8-row halo each side
     prev_u_h: torch.Tensor,    # (Hl/2 + 8, W/2): + 4-row halo
     prev_v_h: torch.Tensor,
-    is_iframe: bool,
+    is_iframe,                 # bool, or a 0-d bool or int tensor (nonzero: I-frame)
     yr: int,
     ur: int,
     first_mb_row: int,         # global MB row of local row 0

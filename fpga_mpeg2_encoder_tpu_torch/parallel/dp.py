@@ -5,10 +5,13 @@ The counterpart of deploying N copies of the reference IP (BASELINE config
 5: "Batched 8-stream 1080p ... per-chip stream isolation").  Streams never
 communicate, so each stream's bytes are those of a single-stream encode
 whatever the batch or the mesh.  Every kernel takes one frame, so a batch is
-a loop over streams, each through the single-stream functions of
-models/encoder.  Every launch goes to one CUDA stream, so the JAX package's
-order (a scan over frames of a vmap over streams) would change nothing.  A
-stream axis in the kernels' grids is later work.
+a loop over streams, each through the single-stream compiled programs of
+models/encoder (encode_frame_device, encode_gop_scan): on a card the streams
+replay one captured graph per geometry, knobs and caps, one after another,
+and each stream's outputs are copied out of the graph's tensors before the
+next stream's replay.  Every launch goes to one CUDA stream, so the JAX
+package's order (a scan over frames of a vmap over streams) would change
+nothing.  A stream axis in the kernels' grids is later work.
 
 Unlike the JAX package there is no statistical level budget (``budget_bps``):
 a row overflows exactly when its bits exceed 32 * row_cap, and an
@@ -30,8 +33,8 @@ from ..models.encoder import (
     DEFAULT_FRAME_CAP,
     DEFAULT_ROW_CAP,
     bound_caps,
-    encode_frame_core,
-    encode_gop_scan_core,
+    encode_frame_device,
+    encode_gop_scan,
     resolve_device,
     words_to_bytes,
 )
@@ -40,17 +43,29 @@ from .mesh import local_range
 Frame = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
 
+def _stack_into(outs: List, b: int, n: int, values) -> None:
+    """Copy stream b's tensors ``values`` into the (n, ...) stacks ``outs``
+    (made at stream 0): a program's outputs are rewritten by its next call."""
+    if b == 0:
+        outs.extend(torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
+                    for v in values)
+    for out, v in zip(outs, values):
+        out[b].copy_(v)
+
+
 def encode_frames_batched(y444, u444, v444, prev_y, prev_u, prev_v,
                           i_frame: Sequence[int], frame_no: Sequence[int], *,
                           yr: int, ur: int, q_level: int, row_cap: int, frame_cap: int):
     """One frame of each of B streams: (B, H, W) planes, (B, H, W) and
     (B, H/2, W/2) previous recons, B host ints each for i_frame and frame_no
-    -> encode_frame_core's outputs stacked over the streams."""
-    outs = [encode_frame_core(y444[b], u444[b], v444[b], prev_y[b], prev_u[b], prev_v[b],
-                              int(i_frame[b]), int(frame_no[b]), yr=yr, ur=ur,
-                              q_level=q_level, row_cap=row_cap, frame_cap=frame_cap)
-            for b in range(y444.shape[0])]
-    return tuple(torch.stack(x) for x in zip(*outs))
+    -> encode_frame_device's outputs stacked over the streams."""
+    n, outs = y444.shape[0], []
+    for b in range(n):
+        _stack_into(outs, b, n, encode_frame_device(
+            y444[b], u444[b], v444[b], prev_y[b], prev_u[b], prev_v[b], int(i_frame[b]),
+            int(frame_no[b]), yr=yr, ur=ur, q_level=q_level, row_cap=row_cap,
+            frame_cap=frame_cap))
+    return tuple(outs)
 
 
 def encode_gops_batched(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
@@ -58,20 +73,18 @@ def encode_gops_batched(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
                         pframes_count: int, *, yr: int, ur: int, q_level: int,
                         row_cap: int, frame_cap: int, seq_cap: int):
     """F frames of each of B streams, (B, F, H, W) stacks, each stream
-    through encode_gop_scan_core.  Returns its outputs stacked over the
-    streams: recon_y, recon_u, recon_v (B, ...), seq_words (B, seq_cap +
-    frame_cap + 1) int64, seq_bits (B,), i_frame, frame_no (B host ints
-    each), overflow (B,) bool, frame_bits (B, F), frame_i_frames (B, F) host
-    ints."""
-    outs = [encode_gop_scan_core(frames_y[b], frames_u[b], frames_v[b], prev_y[b],
-                                 prev_u[b], prev_v[b], int(i_frame0[b]), int(frame_no0[b]),
-                                 pframes_count, yr=yr, ur=ur, q_level=q_level,
-                                 row_cap=row_cap, frame_cap=frame_cap, seq_cap=seq_cap)
-            for b in range(frames_y.shape[0])]
-    ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = zip(*outs)
-    return (torch.stack(ry), torch.stack(ru), torch.stack(rv), torch.stack(sw),
-            torch.stack(sb), list(i_f), list(fno), torch.stack(ovf), torch.stack(fbits),
-            list(fifs))
+    through encode_gop_scan.  Returns its outputs stacked over the streams:
+    recon_y, recon_u, recon_v (B, ...), seq_words (B, seq_cap + frame_cap +
+    1) int64, seq_bits (B,), i_frame, frame_no (B host ints each), overflow
+    (B,) bool, frame_bits (B, F), frame_i_frames (B, F) host ints."""
+    n, outs = frames_y.shape[0], []
+    for b in range(n):
+        _stack_into(outs, b, n, encode_gop_scan(
+            frames_y[b], frames_u[b], frames_v[b], prev_y[b], prev_u[b], prev_v[b],
+            int(i_frame0[b]), int(frame_no0[b]), pframes_count, yr=yr, ur=ur,
+            q_level=q_level, row_cap=row_cap, frame_cap=frame_cap, seq_cap=seq_cap))
+    ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = outs
+    return (ry, ru, rv, sw, sb, i_f.tolist(), fno.tolist(), ovf, fbits, fifs.tolist())
 
 
 class BatchEncoder:

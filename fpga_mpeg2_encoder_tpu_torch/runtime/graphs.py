@@ -1,0 +1,111 @@
+"""Captured CUDA graphs: the port's counterpart of the JAX package's jax.jit.
+
+A step is a function of no arguments that reads its inputs from tensors it
+closes over and writes what it carries into tensors it owns.  ``Step`` runs
+it once eagerly (the warm-up: it builds the kernels, uploads the VLC tables
+and allocates pack_slots' look-back buffer, none of which a capture may
+do), then captures it on a side stream into a CUDA graph with a memory pool
+of its own.  Each call then replays the graph: one launch from the host for
+the whole step, whatever the number of kernels in it.
+
+A replay overwrites what the previous replay left in the graph's tensors and
+in the step's own: callers copy out what they keep before the next call.
+Replays go to the caller's current stream, one after another.
+
+The kernels' launches are counted into a tally while the graph is captured
+(``ops/kernels/_build.tally_into``); each replay adds the tally to
+``_build.LAUNCHES``.  The warm-up's launches are not counted.
+
+On the CPU there is nothing to capture: each call runs the step eagerly.
+A capture that fails raises; nothing falls back to the eager step on a card.
+An operation that waits for the device inside the step (``bool()``,
+``.item()``, an upload from pageable memory, a mask with a data-dependent
+size) makes the capture fail.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Dict, Hashable
+
+import torch
+
+from ..ops.kernels import _build
+
+MAX_PROGRAMS = 16        # programs kept per process; the least recently used goes
+
+_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+_programs: "OrderedDict[Hashable, object]" = OrderedDict()
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream every warm-up and capture on ``device`` runs on.  Its
+    pack_slots look-back buffer is sized by the warm-ups: one that needs
+    more tiles than any before it gets a larger buffer, and the graphs
+    captured with the old one keep replaying with it, since pack.py never
+    frees a look-back buffer."""
+    if device not in _streams:
+        _streams[device] = torch.cuda.Stream(device)
+    return _streams[device]
+
+
+class Step:
+    """``fn`` on ``device``: replayed from a CUDA graph captured after one
+    eager warm-up, or, on the CPU, called as it is.  ``launches`` is the
+    capture's tally of kernel launches, added to ``_build.LAUNCHES`` at each
+    replay; ``outputs`` is what ``fn`` returned when it was captured (the
+    graph's tensors, rewritten by each replay)."""
+
+    def __init__(self, fn: Callable[[], object], device):
+        self.device = torch.device(device)
+        self._fn = fn
+        self._graph = None
+        self.launches: Dict[str, int] = {}
+        self.outputs = None
+        if self.device.type == "cuda":
+            self._capture()
+
+    def _capture(self) -> None:
+        with torch.cuda.device(self.device):
+            stream = _side_stream(self.device)
+            current = torch.cuda.current_stream(self.device)
+            stream.wait_stream(current)
+            try:
+                with torch.cuda.stream(stream), _build.tally_into({}):
+                    self._fn()
+                graph, tally = torch.cuda.CUDAGraph(), {}
+                with _build.tally_into(tally):
+                    with torch.cuda.graph(graph, stream=stream):
+                        outputs = self._fn()
+            finally:
+                # a failed capture can leave the side stream current
+                torch.cuda.set_stream(current)
+            current.wait_stream(stream)
+        self._graph, self.launches, self.outputs = graph, tally, outputs
+
+    def __call__(self):
+        if self._graph is None:
+            self.outputs = self._fn()
+        else:
+            self._graph.replay()
+            _build.add_launches(self.launches)
+        return self.outputs
+
+
+def cached(key: Hashable, make: Callable[[], object]):
+    """The program cached under ``key``, made by ``make()`` at first use.
+    At most MAX_PROGRAMS are kept; the least recently used is dropped (its
+    graph's memory is freed once no tensor of it is held)."""
+    prog = _programs.get(key)
+    if prog is None:
+        prog = make()
+        _programs[key] = prog
+        while len(_programs) > MAX_PROGRAMS:
+            _programs.popitem(last=False)
+    else:
+        _programs.move_to_end(key)
+    return prog
+
+
+def clear() -> None:
+    """Drop every cached program."""
+    _programs.clear()

@@ -106,7 +106,7 @@ def test_cli_caps_hold_the_largest_size(tmp_path, monkeypatch, chunk):
     clips of two sizes are encoded once a frame (or chunk), at those caps,
     with no overflow retry, and equal the golden model's streams."""
     calls = []
-    for name in ("encode_frame_core", "encode_gop_scan_core"):
+    for name in ("encode_frame_device", "encode_gop_scan"):
         real = getattr(M, name)
 
         def rec(*a, _real=real, **kw):

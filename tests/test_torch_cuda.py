@@ -29,9 +29,11 @@ from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
+from fpga_mpeg2_encoder_tpu_torch.models import encoder as M
 from fpga_mpeg2_encoder_tpu_torch.models.encoder import encode_frame_core
 from fpga_mpeg2_encoder_tpu_torch.parallel.dp import BatchEncoder
 from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import band_with_halo, frame_tail, make_local_step
+from fpga_mpeg2_encoder_tpu_torch.runtime import graphs
 from fpga_mpeg2_encoder_tpu_torch.utils.testdata import (
     GOLDEN_MATRIX, chroma_maps, random_sequence, video)
 
@@ -727,3 +729,188 @@ def test_append_bitstrings_batched_on_card_equals_cpu(dev):
         want = bitpack.append_bitstrings_batched(*(torch.from_numpy(a.copy()) for a in args))
         assert all(torch.equal(g.cpu(), w_) for g, w_ in zip(got, want)), r
 
+
+
+# ---- the compiled programs: CUDA graphs of one frame's step -----------------
+
+def _stacks(dev, w, h, n, seed, kind="pan"):
+    frames = video(seed, w, h, n, kind)
+    return [torch.as_tensor(np.stack([f[i] for f in frames]), device=dev) for i in range(3)]
+
+
+@pytest.mark.parametrize("w", [64, 416, 1920])
+def test_graph_me_pack_gop_scan_equals_core(dev, w):
+    """encode_gop_scan replays its captured step and equals the eager
+    encode_gop_scan_core in all ten outputs: two chunks (4 frames, then 3
+    from the first chunk's recon and GOP state), I and P frames, the GOP
+    wrapping (pframes_count 2 from position 1) and the timecode rolling over
+    at frame 1440.  LAUNCHES counts each main-path kernel exactly once a
+    frame, the capture's warm-up not at all."""
+    h, kw = 64, dict(yr=6, ur=3, q_level=2, row_cap=8192, frame_cap=65536, seq_cap=131072)
+    graphs.clear()
+    stacks = _stacks(dev, w, h, 7, w)
+    zy = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev)
+    state = {"core": ((zy, zc, zc), 1, 1437), "graph": ((zy, zc, zc), 1, 1437)}
+    for a, b in ((0, 4), (4, 7)):
+        chunk = [t[a:b] for t in stacks]
+        prev, i0, f0 = state["core"]
+        want = M.encode_gop_scan_core(*chunk, *prev, i0, f0, 2, **kw)
+        prev, i0, f0 = state["graph"]
+        _build.reset_launches()
+        got = M.encode_gop_scan(*chunk, *prev, i0, f0, 2, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {**{k: b - a for k in MAIN_PATH}, "me_luma": 0,
+                                   "chroma_pred": 0}, _build.LAUNCHES
+        for k in range(3):
+            assert torch.equal(got[k], want[k]), k
+        nbits = int(want[4])
+        assert int(got[4]) == nbits and not bool(got[7]) and not bool(want[7])
+        nw = (nbits + 31) // 32
+        assert torch.equal(got[3][:nw], want[3][:nw])
+        assert (int(got[5]), int(got[6])) == (want[5], want[6])
+        assert got[8].tolist() == want[8].tolist() and got[9].tolist() == want[9]
+        state["core"] = (want[:3], want[5], want[6])
+        state["graph"] = (tuple(t.clone() for t in got[:3]), got[5].clone(), got[6].clone())
+    assert [k[0] for k in graphs._programs] == ["gop"]
+
+
+@pytest.mark.parametrize("w", [64, 416, 1920])
+def test_graph_me_pack_frame_device_equals_core(dev, w):
+    """encode_frame_device replays its captured step and equals the eager
+    encode_frame_core, frame after frame (I P P I), each main-path kernel
+    counted once a call."""
+    h, kw = 64, dict(yr=6, ur=3, q_level=3, row_cap=2048, frame_cap=65536)
+    stacks = _stacks(dev, w, h, 4, w + 1, "noise" if w == 416 else "pan")
+    zy = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev)
+    prev_c = prev_g = (zy, zc, zc)
+    for k, i_f in enumerate((0, 1, 2, 0)):
+        frame = [t[k] for t in stacks]
+        want = encode_frame_core(*frame, *prev_c, i_f, 1438 + k, **kw)
+        _build.reset_launches()
+        got = M.encode_frame_device(*frame, *prev_g, torch.tensor(i_f, dtype=torch.int32,
+                                                                  device=dev), 1438 + k, **kw)
+        torch.cuda.synchronize()
+        assert all(_build.LAUNCHES[n] == 1 for n in MAIN_PATH), _build.LAUNCHES
+        nw = (int(want[4]) + 31) // 32
+        assert int(got[4]) == int(want[4]) and not bool(got[5])
+        assert torch.equal(got[3][:nw], want[3][:nw])
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b), k
+        prev_c, prev_g = want[:3], tuple(t.clone() for t in got[:3])
+
+
+def test_graph_me_pack_encoder_second_cache_key(dev):
+    """Encoder on the card goes through the programs, each a captured graph:
+    caps too small for noise send every push to the bounds' program (a
+    second cache key), and a second sequence of another geometry through
+    the same object replays programs of its own; the streams equal the
+    CPU's."""
+    graphs.clear()
+    cfg = EncoderConfig(xl=5, yl=4)
+    enc = Encoder(cfg, row_cap=64, frame_cap=256, device=dev)
+    cpu = Encoder(cfg, row_cap=64, frame_cap=256, device="cpu")
+    for w, chunk in ((64, 1), (64, 3), (416, 3)):
+        frames = video(w + chunk, w, 64, 3, "noise")
+        assert enc.encode(frames, w, 64, 1, chunk_frames=chunk) == \
+            cpu.encode(frames, w, 64, 1, chunk_frames=chunk)
+    keys = [k for k in graphs._programs if k[1].type == "cuda"]
+    assert all(graphs._programs[k].step._graph is not None for k in keys)
+    caps = {(k[0], k[3], k[7], k[8]) for k in keys}
+    bounds = M.bound_caps(64, 64)
+    assert {("frame", 64, 64, 256), ("frame", 64) + bounds, ("gop", 64, 64, 256),
+            ("gop", 64) + bounds, ("gop", 416) + M.bound_caps(416, 64)} <= caps, caps
+
+
+def test_graph_me_pack_batch_encoder_replays(dev):
+    """BatchEncoder's streams replay the single-stream programs one after
+    another: every main-path kernel counted exactly once per stream and
+    frame, and each stream equal to its own Encoder.encode."""
+    cfg, seq = EncoderConfig(xl=5, yl=4), SequenceConfig(416, 64, 2)
+    videos = [video(30 + b, 416, 64, 5, "noise" if b % 2 else "pan") for b in range(3)]
+    be = BatchEncoder(cfg, seq, 3, device=dev)
+    _build.reset_launches()
+    be.push_frames([v[0] for v in videos])
+    be.push_chunks([v[1:5] for v in videos])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {**{k: 15 for k in MAIN_PATH}, "me_luma": 0,
+                               "chroma_pred": 0}, _build.LAUNCHES
+    got = be.finish()
+    for b, v in enumerate(videos):
+        enc = Encoder(cfg, device=dev)
+        enc.start_sequence(seq)
+        enc.push_frame(*v[0])
+        enc.push_chunk(v[1:5])
+        assert got[b] == enc.finish(), b
+
+
+def test_graph_pack_me_lookback_outlives_a_larger_capture(dev):
+    """A graph keeps pack_slots' look-back buffer: a later warm-up and
+    capture that need a larger one (2048x1440: 92 rows of 13 tiles, past the
+    first buffer's 1024) leave the first buffer allocated, so memory then
+    taken and filled on the capture stream is not the first graph's, and
+    the 64x64 program still equals encode_frame_core, I and P."""
+    graphs.clear()
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=65536)
+
+    def frame(w, h):
+        f = [torch.as_tensor(p, device=dev) for p in video(w, w, h, 2, "pan")[1]]
+        z = (torch.zeros((h, w), dtype=torch.uint8, device=dev),
+             *(torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev),) * 2)
+        return f, z
+
+    small, zs = frame(64, 64)
+    M.encode_frame_device(*small, *zs, 0, 0, **kw)
+    side = graphs._side_stream(small[0].device)
+    key = (small[0].device, side.cuda_stream)
+    first = k_pack._lookback[key]
+    big, zb = frame(2048, 1440)
+    M.encode_frame_device(*big, *zb, 0, 0, **kw)
+    assert k_pack._lookback[key].numel() - 2 >= 92 * 13
+    assert any(b is first for b in k_pack._retired)
+    with torch.cuda.stream(side):
+        junk = [torch.full((first.numel(),), -1, dtype=torch.int64, device=dev)
+                for _ in range(8)]
+    torch.cuda.synchronize()
+    for i_f in (0, 1):
+        want = encode_frame_core(*small, *zs, i_f, 5, **kw)
+        got = M.encode_frame_device(*small, *zs, i_f, 5, **kw)
+        torch.cuda.synchronize()
+        nw = (int(want[4]) + 31) // 32
+        assert int(got[4]) == int(want[4]) and not bool(got[5])
+        assert torch.equal(got[3][:nw], want[3][:nw]), i_f
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b), i_f
+    assert all(bool((j == -1).all()) for j in junk)
+    graphs.clear()
+
+
+@pytest.mark.parametrize("sync", ["item", "bool", "upload", "mask"])
+def test_graph_capture_raises_on_sync(dev, sync):
+    """A step that waits for the device makes its capture raise (no
+    fallback to the eager step), and the caller's stream stays current."""
+    x = torch.arange(8, device=dev)
+    steps = {"item": lambda: x.sum().item(), "bool": lambda: bool(x.any()),
+             "upload": lambda: torch.as_tensor(np.arange(8), device=dev) + x,
+             "mask": lambda: x[x > 3]}
+    stream = torch.cuda.current_stream(dev)
+    with pytest.raises(RuntimeError):
+        graphs.Step(steps[sync], dev)
+    assert torch.cuda.current_stream(dev) == stream
+    torch.cuda.synchronize()
+    assert int(x.sum()) == 28
+
+
+def test_graph_me_kernels_take_the_flag_from_device_memory(dev):
+    """The motion kernels read the I/P flag from device memory: a 0-d bool
+    or int tensor on the card gives what the bool gives, and one launch each."""
+    cur, py, pu, pv = _me_planes(dev, 416, 64, "pan", 6)
+    for is_i in (False, True):
+        want = k_me.motion_estimate_fused(cur, py, pu, pv, is_i, 6, 3)
+        for t in (torch.tensor(is_i, device=dev),
+                  torch.tensor(5 if is_i else 0, dtype=torch.int32, device=dev)):
+            _equal(_launched("me_fused", lambda: k_me.motion_estimate_fused(
+                cur, py, pu, pv, t, 6, 3)), want)
+            _equal(_launched("me_luma", lambda: k_me.motion_estimate(cur, py, t, 6)),
+                   want[:4])

@@ -90,7 +90,7 @@ def _record_caps(monkeypatch):
     """Record the caps of each call of the single-frame and multi-frame
     pipelines."""
     calls = []
-    for name in ("encode_frame_core", "encode_gop_scan_core"):
+    for name in ("encode_frame_device", "encode_gop_scan"):
         real = getattr(M, name)
 
         def rec(*a, _real=real, **kw):
