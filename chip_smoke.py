@@ -83,7 +83,23 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    BatchEncoder streams equal each stream's eager encode_gop_scan_core; (f)
    16 frames streamed one at a time with each payload downloaded (push_frame's
    pattern, frames on the card), encode_frame_core against
-   encode_frame_device in turns, host clock, ms a frame.
+   encode_frame_device in turns, host clock, ms a frame;
+12. the sharded programs (parallel/spatial.py: a rank's local steps one
+   captured graph, its frame tails another, the halo exchange, the row
+   gather and the overflow all-reduce enqueued between them): (a) phase 8's
+   4 shards through make_shards_encoder (4 local graphs, each captured with
+   the motion kernel's band form at its first_mb_row, and the tail graph),
+   8 frames, payload and recon equal to phase 8's encode_frame_core and the
+   kernels counted under replay as phase 8 counts them; (b) a one-rank
+   NCCL make_sharded_frame_encoder over 16 frames, each recon fed straight
+   back, equal to encode_frame_device frame by frame, F, T, A and M
+   counted once and P twice a frame; wall and device ms a frame, kernels a
+   frame and the idle share, beside make_sharded_frame_encoder_core (the
+   eager factory) in the same run; (c) a one-rank 2-D mesh
+   make_sharded_batch_encoder with 4 streams of 1920x1152 in one block,
+   each stream equal to its encode_frame_core; (d) with two cards or more,
+   sharded_rank through the programs over NCCL (a line says it did not
+   run on one card).
 Then the seconds each phase took, and, as the last lines, a JSON summary of
 the kernels (``launches``: 5b's run, through the graphs), the card and the
 device line.
@@ -199,17 +215,21 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def sharded_rank(rank, world, init, backend, out, nf):
-    """One rank of phase 8's multi-card part: make_sharded_frame_encoder over
-    ``backend`` on ``world`` ranks, nf frames IPPP of bench.py's content;
-    saves this rank's recon rows and (rank 0) each frame's payload."""
+def sharded_rank(rank, world, init, backend, out, nf, program):
+    """One rank of the multi-card parts of phases 8 and 12: over ``backend``
+    on ``world`` ranks, nf frames IPPP of bench.py's content through
+    make_sharded_frame_encoder_core (phase 8, eager) or, with ``program``,
+    make_sharded_frame_encoder (phase 12d, the graphs, the GOP state as
+    device scalars); saves this rank's recon rows and each frame's
+    payload."""
     import numpy as np
     import torch
     import torch.distributed as dist
     from bench import make_frames
     from fpga_mpeg2_encoder_tpu_torch import EncoderConfig
     from fpga_mpeg2_encoder_tpu_torch.parallel.mesh import local_range, make_mesh
-    from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import make_sharded_frame_encoder
+    from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import (
+        make_sharded_frame_encoder, make_sharded_frame_encoder_core)
 
     dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
     try:
@@ -217,8 +237,8 @@ def sharded_rank(rank, world, init, backend, out, nf):
         mesh = make_mesh(world, axis="slice", device=device)
         dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else "cpu"
         cfg = EncoderConfig(xl=7, yl=7, vector_level=3, q_level=2)    # main()'s
-        enc = make_sharded_frame_encoder(mesh, H, W, yr=cfg.yr, ur=cfg.ur,
-                                         q_level=cfg.q_level, **CAPS)
+        factory = make_sharded_frame_encoder if program else make_sharded_frame_encoder_core
+        enc = factory(mesh, H, W, yr=cfg.yr, ur=cfg.ur, q_level=cfg.q_level, **CAPS)
         rows = local_range(H // 16, mesh, "slice")
         ly = slice(16 * rows.start, 16 * rows.stop)
         prev = (torch.zeros((16 * len(rows), W), dtype=torch.uint8, device=dev),
@@ -227,8 +247,10 @@ def sharded_rank(rank, world, init, backend, out, nf):
         res = {"rows": np.array([rows.start, rows.stop])}
         for fi, f in enumerate(make_frames(W, H, nf)):
             planes = [torch.as_tensor(np.ascontiguousarray(p[ly]), device=dev) for p in f]
-            ry, ru, rv, fw, fb, ovf = enc(*planes, *prev, fi, fi)
+            gop = torch.full((), fi, dtype=torch.int32, device=dev) if program else fi
+            ry, ru, rv, fw, fb, ovf = enc(*planes, *prev, gop, gop)
             nw = (int(fb) + 31) // 32
+            # copies: a program's outputs are rewritten by its next call
             res.update({f"y{fi}": ry.cpu().numpy(), f"u{fi}": ru.cpu().numpy(),
                         f"v{fi}": rv.cpu().numpy(), f"bits{fi}": np.int64(fb),
                         f"words{fi}": fw[:nw].cpu().numpy(), f"ovf{fi}": np.bool_(ovf)})
@@ -239,22 +261,23 @@ def sharded_rank(rank, world, init, backend, out, nf):
         dist.destroy_process_group()
 
 
-def run_sharded_ranks(world, backend, nf, timeout=600):
-    """Phase 8's ranks in spawned processes (a file store in a temporary
-    directory) -> each rank's saved arrays."""
+def run_sharded_ranks(world, backend, nf, program=False, timeout=600):
+    """The ranks of phase 8 (or, with ``program``, 12d) in spawned processes
+    (a file store in a temporary directory) -> each rank's saved arrays."""
     import numpy as np
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as out:
         init = "file://" + os.path.join(out, "rendezvous")
-        ctx = mp.start_processes(sharded_rank, args=(world, init, backend, out, nf),
+        ctx = mp.start_processes(sharded_rank, args=(world, init, backend, out, nf, program),
                                  nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
                 for proc in ctx.processes:
                     proc.kill()
-                raise TimeoutError(f"phase 8: {world} ranks still running after {timeout} s")
+                raise TimeoutError(f"{'12d' if program else 'phase 8'}: {world} ranks still "
+                                   f"running after {timeout} s")
         res = []
         for r in range(world):
             with np.load(os.path.join(out, f"rank{r}.npz")) as f:
@@ -800,18 +823,22 @@ def main():
           f"band form at first_mb_row {firsts}; kernels a frame "
           f"{ {k: v / nf8 for k, v in launches8.items() if v} }", flush=True)
     n_cards = torch.cuda.device_count()
-    if n_cards >= 2:
-        world = min(4, n_cards)
-        res = run_sharded_ranks(world, "nccl", nf8)
+
+    def check_ranks(tag, res):
+        """Each rank's saved frames against phase 8's encode_frame_core."""
         for fi, (fb, fw, recon) in enumerate(want_frames):
             for r, got in enumerate(res):
                 a, b = got["rows"]
                 if got[f"ovf{fi}"] or int(got[f"bits{fi}"]) != fb \
                         or not np.array_equal(got[f"words{fi}"], fw):
-                    raise AssertionError(f"8 NCCL: rank {r} frame {fi}: payload differs")
+                    raise AssertionError(f"{tag}: rank {r} frame {fi}: payload differs")
                 for c, plane, rows in zip("yuv", recon, (16, 8, 8)):
                     if not np.array_equal(got[f"{c}{fi}"], plane[rows * a:rows * b]):
-                        raise AssertionError(f"8 NCCL: rank {r} frame {fi}: recon differs")
+                        raise AssertionError(f"{tag}: rank {r} frame {fi}: recon differs")
+
+    if n_cards >= 2:
+        world = min(4, n_cards)
+        check_ranks("8 NCCL", run_sharded_ranks(world, "nccl", nf8))
         print(f"8 make_sharded_frame_encoder over NCCL on {world} cards: {nf8} frames equal "
               f"encode_frame_core", flush=True)
     else:
@@ -976,7 +1003,8 @@ def main():
         if bool(o[7]) or streams7[b] != data:
             raise AssertionError(f"11e: BatchEncoder stream {b} != its eager encode")
     progs = sorted({(k[0], k[2], k[3]) for k in graphs._programs
-                    if k[1].type == "cuda" and graphs._programs[k].step._graph is not None})
+                    if k[0] in ("frame", "gop") and k[1].type == "cuda"
+                    and graphs._programs[k].step._graph is not None})
     print(f"11e BatchEncoder {ns} x {W}x{H} (phase 7, graph replays): each stream equals "
           f"encode_gop_scan_core of its frames; captured programs (kind, H, W): {progs}",
           flush=True)
@@ -1013,9 +1041,185 @@ def main():
           f"{', '.join(f'{t:.4f}' for t in st_ms['eager'])}; encode_frame_device "
           f"{', '.join(f'{t:.4f}' for t in st_ms['graph'])}; on {smi}", flush=True)
 
+    # ---- 12. the sharded programs: local and tail graphs, collectives between --
     starts[12] = time.perf_counter()
+    import torch.distributed as dist
+    from fpga_mpeg2_encoder_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
+    from fpga_mpeg2_encoder_tpu_torch.parallel import spatial as S
+
+    # (a) phase 8's 4 shards through the local and tail programs; the motion
+    # wrapper is called where the local graphs are captured, not at replay
+    bands = []
+    _build.reset_launches()
+    k_me.motion_estimate_fused = recording_fused
+    try:
+        shards = S.make_shards_encoder(dev, nsh, H, W, **kw, **CAPS)   # warm-ups, captures
+        launches_capture = {k: v for k, v in _build.LAUNCHES.items() if v}
+        prev = (zy, zc, zc)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        sharded12 = []
+        for fi in range(nf8):
+            sharded12.append(tuple(t.clone() for t in shards(fy[fi], fu[fi], fv[fi], *prev,
+                                                              fi, fi)))
+            prev = sharded12[-1][:3]
+        torch.cuda.synchronize()
+        ms12a = (time.perf_counter() - t0) * 1e3 / nf8
+    finally:
+        k_me.motion_estimate_fused = fused
+    firsts = sorted({r for halo, r in bands if halo})
+    if not bands or not all(halo for halo, _ in bands) \
+            or firsts != [rows8 * k for k in range(nsh)]:
+        raise AssertionError(f"12a: motion kernel calls (halo, first_mb_row) {bands}")
+    launches12a = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launches12a != want8:
+        raise AssertionError(f"12a: launches {launches12a} under replay, expected {want8}")
+    for fi in range(nf8):
+        ry, ru, rv, fw, fb, ovf = sharded12[fi]
+        wb, ww, recon = want_frames[fi]
+        nw = (wb + 31) // 32
+        if bool(ovf) or int(fb) != wb or not np.array_equal(fw[:nw].cpu().numpy(), ww):
+            raise AssertionError(f"12a: frame {fi}: shard programs' payload != "
+                                 f"encode_frame_core's")
+        if not all(np.array_equal(a.cpu().numpy(), b) for a, b in zip((ry, ru, rv), recon)):
+            raise AssertionError(f"12a: frame {fi}: shard programs' recon != "
+                                 f"encode_frame_core's")
+    def shard_frames(n=nf8):
+        prev = (zy, zc, zc)
+        for fi in range(n):
+            prev = shards(fy[fi], fu[fi], fv[fi], *prev, fi, fi)[:3]
+
+    wall12a = min(cuda_ms(shard_frames, reps=1, warmup=1) for _ in range(3)) / nf8
+    for _ in range(3):               # a window without the replays' events is taken again
+        ev12a = profile_events(shard_frames, 1)
+        if ev12a:
+            break
+    else:
+        raise AssertionError("12a: the profiler saw no device events of the shard programs")
+    busy12a = sum(e.time_range.elapsed_us() for e in ev12a) / nf8 / 1e3
+    print(f"12a shard programs: {nsh} local graphs ({W}x{H}, {rows8} macroblock rows each, "
+          f"captured with the motion kernel's band form at first_mb_row {firsts}) and the "
+          f"tail graph, {nf8} frames IPPP: payload and recon equal encode_frame_core on every "
+          f"frame; kernels a frame under replay "
+          f"{ {k: v / nf8 for k, v in launches12a.items()} } (warm-ups and captures: "
+          f"{launches_capture}); {len(ev12a) / nf8:.1f} kernels, {busy12a:.4f} ms device "
+          f"and {wall12a:.4f} ms wall a frame, device idle {100 * (1 - busy12a / wall12a):.1f}%"
+          f" ({ms12a:.4f} ms a frame on the host clock with each frame's outputs cloned); "
+          f"on {smi}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1,
+                                rank=0)
+        try:
+            # (b) one NCCL rank: the program against the eager factory
+            mesh1 = make_mesh(1, axis="slice", device="cuda")
+            prog = S.make_sharded_frame_encoder(mesh1, H, W, **kw, **CAPS)
+            eager = S.make_sharded_frame_encoder_core(mesh1, H, W, **kw, **CAPS)
+            gop = [torch.full((), k, dtype=torch.int32, device=dev) for k in range(npf)]
+
+            def sharded_frames(fn, n=npf):
+                prev = (zy, zc, zc)
+                for k in range(n):
+                    out = fn(fy[k], fu[k], fv[k], *prev, gop[k], gop[k])
+                    prev = out[:3]
+                return out
+
+            def per_frame(tag, streams):
+                """Each kernel's launches in the program's frame: F, T, A and
+                M once a stream, P twice (its rows and the header rows)."""
+                torch.cuda.synchronize()
+                got = {k: v for k, v in _build.LAUNCHES.items() if v}
+                want = {k: (2 if k == "pack_slots" else 1) * streams for k in MAIN_PATH}
+                if got != want:
+                    raise AssertionError(f"{tag}: launches {got} under replay, expected {want}")
+                return got
+
+            prev_p, prev_d = (zy, zc, zc), (zy, zc, zc)
+            for k in range(npf):
+                _build.reset_launches()
+                got = prog(fy[k], fu[k], fv[k], *prev_p, gop[k], gop[k])
+                launches12b = per_frame(f"12b frame {k}", 1)
+                want = M.encode_frame_device(fy[k], fu[k], fv[k], *prev_d, k, k, **kw, **CAPS)
+                nw = (int(want[4]) + 31) // 32
+                if bool(got[5]) or bool(want[5]) or int(got[4]) != int(want[4]) \
+                        or not torch.equal(got[3][:nw], want[3][:nw]) \
+                        or not all(torch.equal(a, b) for a, b in zip(got[:3], want[:3])):
+                    raise AssertionError(f"12b: frame {k}: the one-rank program != "
+                                         f"encode_frame_device")
+                prev_p, prev_d = got[:3], tuple(t.clone() for t in want[:3])
+            prof12 = {}
+            for tag, fn in (("program", prog), ("eager factory", eager)):
+                wall_s = min(cuda_ms(lambda: sharded_frames(fn), reps=1, warmup=1)
+                             for _ in range(3)) / npf
+                for _ in range(3):
+                    ev_s = profile_events(lambda: sharded_frames(fn), 1)
+                    if ev_s:
+                        break
+                else:
+                    raise AssertionError(f"12b: the profiler saw no device events of the "
+                                         f"{tag} in 3 windows")
+                busy_s = sum(e.time_range.elapsed_us() for e in ev_s) / npf / 1e3
+                prof12[tag] = (len(ev_s) / npf, busy_s, wall_s)
+            print(f"12b one-rank NCCL make_sharded_frame_encoder ({npf} frames of {W}x{H} "
+                  f"IPPP, recon fed back): equals encode_frame_device on every frame; "
+                  f"launches a frame under replay {launches12b}; "
+                  + "; ".join(f"{tag}: {n:.1f} kernels, {b:.4f} ms device, {t:.4f} ms wall a "
+                              f"frame, device idle {100 * (1 - b / t):.1f}%"
+                              for tag, (n, b, t) in prof12.items())
+                  + f"; single-device graph (11b): {busy_g:.4f} ms device, {wall_g:.4f} ms "
+                    f"wall; on {smi}", flush=True)
+
+            # (c) one rank of a 2-D mesh: 4 streams of 1080p in one block
+            nb, nfc = 4, 4
+            benc = S.make_sharded_batch_encoder(make_mesh2d(1, 1, device="cuda"), nb, H, W,
+                                                **kw, **CAPS)
+            idx = [[(k + 3 * b) % NF for b in range(nb)] for k in range(nfc)]
+            prev_b = (torch.zeros((nb, H, W), dtype=torch.uint8, device=dev),
+                      torch.zeros((nb, H // 2, W // 2), dtype=torch.uint8, device=dev),
+                      torch.zeros((nb, H // 2, W // 2), dtype=torch.uint8, device=dev))
+            prev_s = [(zy, zc, zc)] * nb
+            for k in range(nfc):
+                i_f = [(k + b) % 3 for b in range(nb)]
+                i_t = torch.tensor(i_f, dtype=torch.int32, device=dev)
+                fno = torch.full((nb,), k, dtype=torch.int32, device=dev)
+                planes = (fy[idx[k]], fu[idx[k]], fv[idx[k]])
+                _build.reset_launches()
+                got = benc(*planes, *prev_b, i_t, fno)
+                launches12c = per_frame(f"12c frame {k}", nb)
+                for b in range(nb):
+                    j = idx[k][b]
+                    want = M.encode_frame_core(fy[j], fu[j], fv[j], *prev_s[b], i_f[b], k,
+                                               **kw, **CAPS)
+                    nw = (int(want[4]) + 31) // 32
+                    mine = [o[b] for o in got]
+                    if bool(mine[5]) or bool(want[5]) or int(mine[4]) != int(want[4]) \
+                            or not torch.equal(mine[3][:nw], want[3][:nw]) \
+                            or not all(torch.equal(a, c) for a, c in zip(mine[:3], want[:3])):
+                        raise AssertionError(f"12c: stream {b} frame {k} != its single "
+                                             f"encode")
+                    prev_s[b] = want[:3]
+                prev_b = got[:3]
+            torch.cuda.synchronize()
+            print(f"12c one-rank 2-D mesh make_sharded_batch_encoder: {nb} streams of {W}x{H} "
+                  f"in one block, {nfc} frames, GOP phases differing: each stream equals "
+                  f"encode_frame_core of its frames; launches a frame under replay "
+                  f"{launches12c}", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+    # (d) the programs over NCCL across cards
+    if n_cards >= 2:
+        world = min(4, n_cards)
+        check_ranks("12d NCCL", run_sharded_ranks(world, "nccl", nf8, program=True))
+        print(f"12d make_sharded_frame_encoder (the programs) over NCCL on {world} cards: "
+              f"{nf8} frames equal encode_frame_core", flush=True)
+    else:
+        print(f"12d the sharded programs over NCCL across cards: not run, it needs two "
+              f"cards and this machine has {n_cards}", flush=True)
+
+    starts[13] = time.perf_counter()
     print("phase seconds: " + ", ".join(f"{k} {starts[k + 1] - starts[k]:.1f}"
-                                        for k in range(1, 12)), flush=True)
+                                        for k in range(1, 13)), flush=True)
 
     kernels = []
     for kname in MAIN_PATH + OFF_PATH:

@@ -125,7 +125,9 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     prev_s = (prev_r[0][ly], prev_r[1][lc], prev_r[2][lc])
     for fi in range(2):
         y, u, v = _planes(rng, (sh, sw), dev)
-        out_s = senc(y[ly], u[ly], v[ly], *prev_s, fi, fi)
+        # the GOP state as device scalars, as the JAX entry passes it
+        fi_t = torch.full((), fi, dtype=torch.int32, device=dev)
+        out_s = senc(y[ly], u[ly], v[ly], *prev_s, fi_t, fi_t)
         out_r = encode_frame_core(y, u, v, *prev_r, fi, fi, **KW,
                                   row_cap=DEFAULT_ROW_CAP, frame_cap=DEFAULT_FRAME_CAP)
         _check_equal(f"sharded frame {fi}", out_s[3:], out_r[3:])
@@ -151,7 +153,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
             planes = [_planes(rng, (bh, bw), dev) for _ in range(2)]
             i_f = [fi, 1 - fi]
             ob = benc(*(torch.stack([planes[b][i][ly] for b in mine]) for i in range(3)),
-                      *pb, [i_f[b] for b in mine], [fi] * len(mine))
+                      *pb, torch.tensor([i_f[b] for b in mine], dtype=torch.int32, device=dev),
+                      torch.full((len(mine),), fi, dtype=torch.int32, device=dev))
             for j, b in enumerate(mine):
                 out_r = encode_frame_core(*planes[b], *ref[b], i_f[b], fi, **KW,
                                           row_cap=DEFAULT_ROW_CAP,

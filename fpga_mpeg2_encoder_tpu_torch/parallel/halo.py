@@ -21,28 +21,52 @@ from torch.distributed.device_mesh import DeviceMesh
 from .mesh import local_range
 
 
-def exchange_halo(x: torch.Tensor, halo: int, group) -> torch.Tensor:
-    """Pad this rank's row block (rows, W) with ``halo`` rows from its
-    neighbours in ``group`` -> (rows + 2*halo, W).  Edge ranks receive zeros
-    (their out-of-frame candidates are masked, RTL:1642-1645, so the value
-    never matters), as motion.pad_halo pads the whole frame."""
+def exchange_halo(x: torch.Tensor, halo: int, group, out=None) -> torch.Tensor:
+    """Pad this rank's row block ``x`` with ``halo`` rows from its
+    neighbours in ``group``: the rows are dim -2, so ``x`` is one plane
+    (rows, W) or a stack of them (B, rows, W), padded to rows + 2*halo.
+    Edge ranks receive zeros (their out-of-frame candidates are masked,
+    RTL:1642-1645, so the value never matters), as motion.pad_halo pads the
+    whole frame.  One batch of sends and receives serves the whole stack.
+
+    With ``out`` (the padded shape, dtype and device) the block is written
+    there and ``out`` returned: this rank's rows are copied in and the
+    neighbours' rows received straight into it where its halo rows are
+    contiguous (a single plane), through a buffer otherwise.  Halo rows at
+    a frame edge are not written: zero them once.  Every copy and receive
+    is ordered on the current stream, so ``x`` may be a tensor that the next
+    work on that stream overwrites."""
     n = dist.get_world_size(group)
     idx = dist.get_rank(group)
-    from_above = x.new_zeros((halo,) + x.shape[1:])
-    from_below = x.new_zeros((halo,) + x.shape[1:])
-    ops = []
-    if idx > 0:              # my first rows are the bottom halo of the rank above
-        up = dist.get_global_rank(group, idx - 1)
-        ops += [dist.P2POp(dist.isend, x[:halo].contiguous(), up, group),
-                dist.P2POp(dist.irecv, from_above, up, group)]
-    if idx < n - 1:          # my last rows are the top halo of the rank below
-        down = dist.get_global_rank(group, idx + 1)
-        ops += [dist.P2POp(dist.isend, x[-halo:].contiguous(), down, group),
-                dist.P2POp(dist.irecv, from_below, down, group)]
+    rows = x.shape[-2]
+    shape = x.shape[:-2] + (rows + 2 * halo, x.shape[-1])
+    if out is None:
+        out = x.new_zeros(shape)
+    elif tuple(out.shape) != tuple(shape) or out.dtype != x.dtype or out.device != x.device:
+        raise ValueError(f"halo of {tuple(x.shape)} {x.dtype} on {x.device}: out is "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}, want "
+                         f"{tuple(shape)}")
+    out.narrow(-2, halo, rows).copy_(x)
+    ops, landed = [], []
+    # my first rows are the bottom halo of the rank above, my last rows the
+    # top halo of the rank below
+    for peer, mine, theirs in ((idx - 1, 0, 0), (idx + 1, rows - halo, rows + halo)):
+        if not 0 <= peer < n:
+            continue
+        peer = dist.get_global_rank(group, peer)
+        dst = out.narrow(-2, theirs, halo)
+        buf = dst if dst.is_contiguous() else \
+            torch.empty(dst.shape, dtype=dst.dtype, device=dst.device)
+        ops += [dist.P2POp(dist.isend, x.narrow(-2, mine, halo).contiguous(), peer, group),
+                dist.P2POp(dist.irecv, buf, peer, group)]
+        landed.append((dst, buf))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return torch.cat([from_above, x, from_below], dim=0)
+    for dst, buf in landed:
+        if buf is not dst:
+            dst.copy_(buf)
+    return out
 
 
 def sharded_row_sad(cur: torch.Tensor, prev: torch.Tensor, mesh: DeviceMesh, yr: int,

@@ -73,8 +73,12 @@ class Step:
                 with torch.cuda.stream(stream), _build.tally_into({}):
                     self._fn()
                 graph, tally = torch.cuda.CUDAGraph(), {}
+                # thread_local: what this thread does is checked as strictly,
+                # but another thread (NCCL's watchdog querying its events)
+                # does not invalidate the capture
                 with _build.tally_into(tally):
-                    with torch.cuda.graph(graph, stream=stream):
+                    with torch.cuda.graph(graph, stream=stream,
+                                          capture_error_mode="thread_local"):
                         outputs = self._fn()
             finally:
                 # a failed capture can leave the side stream current

@@ -5,19 +5,26 @@ one, on CUDA cards.
     python3 fpga_mpeg2_encoder_tpu_torch/tools/profile_sharded.py [--frames 12]
 
 Rows, one JSON line each:
-* models/encoder.encode_frame_core, the plain single-device step;
-* parallel/spatial.make_sharded_frame_encoder on a one-rank ``slice`` mesh
-  (NCCL, world size 1, in this process): the halo exchange posts nothing and
-  the gather and the overflow all-reduce run over one rank, so the row's
-  difference from the first is what the sharding's machinery costs;
-* the same encoder over min(4, cards) ranks, one process a card, where
-  there are two cards or more; with one card a line says it was not run
-  (NCCL refuses two ranks on one card).
+* models/encoder.encode_frame_core, the eager single-device step;
+* models/encoder.encode_frame_device, its compiled program (a CUDA graph);
+* parallel/spatial.make_sharded_frame_encoder_core (the eager factory) on a
+  one-rank ``slice`` mesh (NCCL, world size 1, in this process): the halo
+  exchange posts nothing and the gather and the overflow all-reduce run
+  over one rank, so its difference from the first row is what the
+  sharding's machinery costs eagerly;
+* parallel/spatial.make_sharded_frame_encoder (the local and tail graphs
+  with the collectives between them) on the same mesh, beside the second
+  row;
+* the program over min(4, cards) ranks, one process a card, where there
+  are two cards or more; with one card a line says it was not run (NCCL
+  refuses two ranks on one card).
 Each frame is another frame of bench.py's content, chained IPPP (each step
-takes the previous step's recon); the first frame warms up and is not timed.
-Times come from CUDA events between frames; each sharded frame's payload
-must equal encode_frame_core's.  ``--device cpu`` runs the same over gloo
-on the CPU, timed on the host's clock.
+takes the previous step's recon), with the GOP position and frame number as
+0-d int32 tensors on the device; the first frame warms up and is not
+timed.  Times come from CUDA events between frames; each frame's outputs
+are cloned before the next (a program rewrites its own) and each payload
+must equal encode_frame_core's.  ``--device cpu`` runs the same over gloo on
+the CPU, timed on the host's clock.
 """
 import argparse
 import json
@@ -33,10 +40,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from fpga_mpeg2_encoder_tpu_torch.models.encoder import encode_frame_core, resolve_device  # noqa: E402
+from fpga_mpeg2_encoder_tpu_torch.models.encoder import (  # noqa: E402
+    encode_frame_core, encode_frame_device, resolve_device)
 from fpga_mpeg2_encoder_tpu_torch.parallel.mesh import local_range, make_mesh  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import (  # noqa: E402
-    make_sharded_frame_encoder)
+    make_sharded_frame_encoder, make_sharded_frame_encoder_core)
 from fpga_mpeg2_encoder_tpu_torch.tools import common  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.tools.profile_stages import parse_size  # noqa: E402
 
@@ -56,12 +64,13 @@ def run_frames(step, frames, dev, rows=None):
             torch.zeros((hl // 2, w // 2), dtype=torch.uint8, device=dev))
     planes = [tuple(torch.as_tensor(np.ascontiguousarray(p[sl]), device=dev) for p in f)
               for f in frames]
+    gop = [torch.full((), fi, dtype=torch.int32, device=dev) for fi in range(len(frames))]
     outs = []
     timer = None
     for fi, f in enumerate(planes):
-        out = step(*f, *prev, fi, fi)
+        out = step(*f, *prev, gop[fi], gop[fi])
         prev = out[:3]
-        outs.append(out[3:])
+        outs.append(tuple(t.clone() for t in out[3:]))
         if fi == 0:
             common.sync(dev)
             timer = common.RepTimer(dev)
@@ -76,10 +85,10 @@ def run_frames(step, frames, dev, rows=None):
     return ms, payloads
 
 
-def sharded(dev, device, frames, world):
+def sharded(dev, device, frames, world, factory=make_sharded_frame_encoder):
     mesh = make_mesh(world, axis="slice", device=device)
     h, w = frames[0][0].shape
-    enc = make_sharded_frame_encoder(mesh, h, w, **KW, **CAPS)
+    enc = factory(mesh, h, w, **KW, **CAPS)
     return run_frames(enc, frames, dev, local_range(h // 16, mesh, "slice"))
 
 
@@ -128,21 +137,32 @@ def main(argv=None) -> int:
         lambda *a: encode_frame_core(*a, **KW, **CAPS), frames, dev)
     plain = row(f"frame_step_plain_{w}x{h}", ms_plain, w, h, card)
     print(json.dumps(plain), flush=True)
+    ms_dev, got = run_frames(lambda *a: encode_frame_device(*a, **KW, **CAPS), frames, dev)
+    check_equal("encode_frame_device", got, want)
+    device = row(f"frame_step_device_{w}x{h}", ms_dev, w, h, card)
+    print(json.dumps(device), flush=True)
 
     backend = "nccl" if dev.type == "cuda" else "gloo"
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(backend, init_method=f"file://{tmp}/store",
                                 world_size=1, rank=0)
         try:
+            ms_core, got_core = sharded(dev, args.device, frames, 1,
+                                        make_sharded_frame_encoder_core)
             ms1, got = sharded(dev, args.device, frames, 1)
         finally:
             dist.destroy_process_group()
-    check_equal("one-rank shard", got, want)
+    check_equal("one-rank eager shard", got_core, want)
+    check_equal("one-rank shard program", got, want)
+    core = row(f"frame_step_sharded1_eager_{w}x{h}", ms_core, w, h, card)
     one = row(f"frame_step_sharded1_{w}x{h}", ms1, w, h, card)
+    print(json.dumps(core), flush=True)
     print(json.dumps(one), flush=True)
-    print(json.dumps({"metric": "sharded_overhead_1rank_pct",
-                      "value": 100 * (one["ms_per_frame"] / plain["ms_per_frame"] - 1),
-                      "unit": "%", "device": card}), flush=True)
+    for metric, mine, base in (("sharded_overhead_1rank_eager_pct", core, plain),
+                               ("sharded_overhead_1rank_pct", one, device)):
+        print(json.dumps({"metric": metric,
+                          "value": 100 * (mine["ms_per_frame"] / base["ms_per_frame"] - 1),
+                          "unit": "%", "device": card}), flush=True)
 
     cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if cards < 2:

@@ -14,9 +14,12 @@ reach the wraps and clamps that pixels never reach.  The acsym and pack_slots
 kernels also get made-up operands that reach every run, escape, tile edge,
 look-back chain and cap.  Slots are int32 holding the uint32 pattern.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 torch.set_num_threads(1)
 
@@ -32,6 +35,8 @@ from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
 from fpga_mpeg2_encoder_tpu_torch.models import encoder as M
 from fpga_mpeg2_encoder_tpu_torch.models.encoder import encode_frame_core
 from fpga_mpeg2_encoder_tpu_torch.parallel.dp import BatchEncoder
+from fpga_mpeg2_encoder_tpu_torch.parallel import spatial as S
+from fpga_mpeg2_encoder_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
 from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import band_with_halo, frame_tail, make_local_step
 from fpga_mpeg2_encoder_tpu_torch.runtime import graphs
 from fpga_mpeg2_encoder_tpu_torch.utils.testdata import (
@@ -914,3 +919,134 @@ def test_graph_me_kernels_take_the_flag_from_device_memory(dev):
                 cur, py, pu, pv, t, 6, 3)), want)
             _equal(_launched("me_luma", lambda: k_me.motion_estimate(cur, py, t, 6)),
                    want[:4])
+
+
+# ---- the sharded programs: local and tail graphs, collectives between -------
+
+def _sharded_equal(got, want, tag):
+    """Two frames' six outputs: recon, then payload bits and words."""
+    nw = (int(want[4]) + 31) // 32
+    assert not bool(got[5]) and not bool(want[5]), tag
+    assert int(got[4]) == int(want[4]), tag
+    assert torch.equal(got[3][:nw], want[3][:nw]), tag
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b), tag
+
+
+@pytest.mark.parametrize("w,h", [(1920, 1152), (416, 64)])
+def test_graph_me_pack_shard_programs_equal_core(dev, w, h):
+    """The 4 one-process shard programs (make_shards_encoder: a local graph
+    a shard, each at its own first_row, then the tail graph) equal
+    encode_frame_core over 8 frames IPPP, each fed its recon back; under
+    replay LAUNCHES counts F, T and A 4 times a frame, P 5 (the shards' rows
+    and the header rows) and M once."""
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=262144)
+    nf = 8
+    enc = S.make_shards_encoder(dev, 4, h, w, **kw)
+    stacks = _stacks(dev, w, h, nf, w + h)
+    zy = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev)
+    prev_c = prev_g = (zy, zc, zc)
+    for k in range(nf):
+        frame = [t[k] for t in stacks]
+        want = encode_frame_core(*frame, *prev_c, k, k, **kw)
+        _build.reset_launches()
+        got = enc(*frame, *prev_g, torch.full((), k, dtype=torch.int32, device=dev), k)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {"me_fused": 4, "transform": 4, "acsym": 4,
+                                   "pack_slots": 5, "merge_rows": 1, "me_luma": 0,
+                                   "chroma_pred": 0}, _build.LAUNCHES
+        _sharded_equal(got, want, k)
+        prev_c, prev_g = want[:3], got[:3]
+    assert all(graphs._programs[key].step._graph is not None for key in graphs._programs
+               if key[0].startswith("shard") and key[1] == dev)
+
+
+@contextlib.contextmanager
+def _no_sync():
+    """Raise on any operation that makes the host wait for the card (an
+    .item(), a bool() or int() of a device tensor, a download, a pageable
+    upload)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def _nccl_one_rank(tmp_path):
+    """A one-rank NCCL process group of this process."""
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", world_size=1,
+                            rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_graph_me_pack_one_rank_nccl_program_feeds_back(dev, tmp_path):
+    """make_sharded_frame_encoder on a one-rank NCCL group: 16 frames of
+    1920x1152 IPPP (GOP position wrapping at 5), each frame's recon passed
+    straight back as the next prev (the halo copy and the replay that
+    rewrites it are ordered on one stream), equal to encode_frame_device
+    frame by frame; each frame counts F, T, A and M once and P twice, and
+    makes the host wait for the card nowhere."""
+    w, h, nf = 1920, 1152, 16
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=262144)
+    stacks = _stacks(dev, w, h, nf, 77)
+    zy = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev)
+    with _nccl_one_rank(tmp_path):
+        enc = S.make_sharded_frame_encoder(make_mesh(1, axis="slice", device="cuda"), h, w,
+                                           **kw)
+        prev_d = prev_s = (zy, zc, zc)
+        for k in range(nf):
+            frame = [t[k] for t in stacks]
+            i_f = torch.full((), k % 6, dtype=torch.int32, device=dev)
+            want = M.encode_frame_device(*frame, *prev_d, i_f, k, **kw)
+            fno = torch.full((), k, dtype=torch.int32, device=dev)
+            _build.reset_launches()
+            with _no_sync():
+                got = enc(*frame, *prev_s, i_f, fno)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES == {"me_fused": 1, "transform": 1, "acsym": 1,
+                                       "pack_slots": 2, "merge_rows": 1, "me_luma": 0,
+                                       "chroma_pred": 0}, _build.LAUNCHES
+            _sharded_equal(got, want, k)
+            prev_d, prev_s = tuple(t.clone() for t in want[:3]), got[:3]
+
+
+def test_graph_me_pack_one_rank_nccl_batch_program(dev, tmp_path):
+    """make_sharded_batch_encoder on a 1 x 1 NCCL mesh: 3 streams of 416x64
+    in one block, (3,) int32 GOP state in different phases, 4 frames, each
+    stream equal to encode_frame_device of its frames; F, T, A and M 3
+    times a frame and P 6 times; the host waits for the card nowhere in a
+    frame, the GOP state given as a tensor and as ints."""
+    b, w, h, nf = 3, 416, 64, 4
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=262144)
+    stacks = [_stacks(dev, w, h, nf, 90 + s) for s in range(b)]
+    zy = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev)
+    with _nccl_one_rank(tmp_path):
+        enc = S.make_sharded_batch_encoder(make_mesh2d(1, 1, device="cuda"), b, h, w, **kw)
+        prev_b = (torch.zeros((b, h, w), dtype=torch.uint8, device=dev),
+                  *(torch.zeros((b, h // 2, w // 2), dtype=torch.uint8, device=dev),) * 2)
+        prev_s = [(zy, zc, zc)] * b
+        for k in range(nf):
+            i_f = [(k + s) % 3 for s in range(b)]
+            planes = [torch.stack([st[i][k] for st in stacks]) for i in range(3)]
+            i_t = torch.tensor(i_f, dtype=torch.int32, device=dev)
+            _build.reset_launches()
+            with _no_sync():
+                got = enc(*planes, *prev_b, i_t, [k] * b)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES == {"me_fused": 3, "transform": 3, "acsym": 3,
+                                       "pack_slots": 6, "merge_rows": 3, "me_luma": 0,
+                                       "chroma_pred": 0}, _build.LAUNCHES
+            for s in range(b):
+                want = M.encode_frame_device(*(t[k] for t in stacks[s]), *prev_s[s], i_f[s],
+                                             k, **kw)
+                _sharded_equal(tuple(o[s] for o in got), want, (k, s))
+                prev_s[s] = tuple(t.clone() for t in want[:3])
+            prev_b = got[:3]

@@ -87,10 +87,12 @@ def test_profile_sharded_smoke(capsys):
     assert profile_sharded.main(["--device", "cpu", "--size", "64x64", "--frames", "3"]) == 0
     rows = _json_lines(capsys.readouterr().out)
     assert [r["metric"] for r in rows] == [
-        "frame_step_plain_64x64", "frame_step_sharded1_64x64", "sharded_overhead_1rank_pct",
+        "frame_step_plain_64x64", "frame_step_device_64x64",
+        "frame_step_sharded1_eager_64x64", "frame_step_sharded1_64x64",
+        "sharded_overhead_1rank_eager_pct", "sharded_overhead_1rank_pct",
         "frame_step_sharded_multicard_64x64"]
-    assert len(rows[0]["ms_each"]) == len(rows[1]["ms_each"]) == 2
-    assert rows[3]["value"] is None and "not run" in rows[3]["note"]
+    assert all(len(r["ms_each"]) == 2 for r in rows[:4])
+    assert rows[6]["value"] is None and "not run" in rows[6]["note"]
 
 
 @pytest.mark.parametrize("tool", TOOLS, ids=lambda t: t.__name__.rsplit(".", 1)[-1])

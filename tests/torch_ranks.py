@@ -83,12 +83,19 @@ def case_row_sad(world, rank, out):
           rows=np.array([rows.start, rows.stop]))
 
 
-FRAME_SHAPES = ((128, 128, "pan"), (96, 256, "noise"))
+FRAME_SHAPES = ((128, 128, "pan"), (96, 256, "noise"), (416, 64, "pan"))
+
+
+def frame_scalar(fi):
+    """Frame fi's GOP position and frame number as the sharded cases pass
+    them: host ints on even frames, 0-d int32 tensors on odd ones."""
+    return (fi, fi) if fi % 2 == 0 else (torch.tensor(fi, dtype=torch.int32),) * 2
 
 
 def case_frames(world, rank, out):
-    """4 frames IPPP of each shape through the slice-sharded frame encoder:
-    this rank's recon rows and the frame payload."""
+    """4 frames IPPP of each shape through the slice-sharded frame program,
+    each frame's recon fed back as the next frame's prev: this rank's recon
+    rows and the frame payload."""
     mesh = make_mesh(world, axis="slice", device="cpu")
     for w, h, kind in FRAME_SHAPES:
         enc = make_sharded_frame_encoder(mesh, h, w, **KW)
@@ -101,18 +108,27 @@ def case_frames(world, rank, out):
         for fi, (y, u, v) in enumerate(video(w + h, w, h, 4, kind)):
             planes = (torch.from_numpy(y[ly].copy()), torch.from_numpy(u[ly].copy()),
                       torch.from_numpy(v[ly].copy()))
-            ry, ru, rv, fw, fb, ovf = enc(*planes, *prev, fi, fi)
+            ry, ru, rv, fw, fb, ovf = enc(*planes, *prev, *frame_scalar(fi))
             nw = (int(fb) + 31) // 32
-            res.update({f"y{fi}": ry.numpy(), f"u{fi}": ru.numpy(), f"v{fi}": rv.numpy(),
-                        f"words{fi}": fw[:nw].numpy(), f"bits{fi}": np.int64(fb),
-                        f"ovf{fi}": np.bool_(ovf)})
+            # the program's outputs are rewritten by its next call
+            res.update({f"y{fi}": ry.numpy().copy(), f"u{fi}": ru.numpy().copy(),
+                        f"v{fi}": rv.numpy().copy(), f"words{fi}": fw[:nw].numpy().copy(),
+                        f"bits{fi}": np.int64(fb), f"ovf{fi}": np.bool_(ovf)})
             prev = (ry, ru, rv)
         _save(out, f"frames_{w}x{h}_r{rank}", rows=np.array([rows.start, rows.stop]), **res)
 
 
+BATCH_COLLECTIVES = ("exchange_halo", "batch_isend_irecv", "all_gather_into_tensor",
+                     "all_gather", "all_reduce")
+
+
 def case_batch2d(world, rank, out):
-    """3 frames of 4 streams through the 2 x (world/2) stream x slice encoder
-    (2 x 1 on two ranks: the streams split, each frame whole)."""
+    """3 frames of 4 streams through the 2 x (world/2) stream x slice
+    program (2 x 1 on two ranks: the streams split, each frame whole), the
+    GOP positions and frame numbers as (B_l,) int32 tensors, the recon fed
+    back; the collectives it issues are counted."""
+    import fpga_mpeg2_encoder_tpu_torch.parallel.spatial as S
+
     b, h, w = 4, 64, 96
     mesh = make_mesh2d(2, world // 2, device="cpu")
     enc = make_sharded_batch_encoder(mesh, b, h, w, **KW)
@@ -124,18 +140,41 @@ def case_batch2d(world, rank, out):
     prev = (torch.zeros((n, 16 * len(rows), w), dtype=torch.uint8),
             torch.zeros((n, 8 * len(rows), w // 2), dtype=torch.uint8),
             torch.zeros((n, 8 * len(rows), w // 2), dtype=torch.uint8))
+    calls = dict.fromkeys(BATCH_COLLECTIVES, 0)
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return fn, wrapper
+
+    patched = [(S, "exchange_halo")] + [(dist, k) for k in BATCH_COLLECTIVES[1:]]
+    saved = []
+    for mod, name in patched:
+        fn, wrapper = counted(mod, name)
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapper)
     res = {}
-    for fi in range(3):
-        planes = [torch.from_numpy(np.stack([vids[s][fi][i][ly] for s in streams]))
-                  for i in range(3)]
-        i_f = [batch_i_frames(fi)[s] for s in streams]
-        ry, ru, rv, fw, fb, ovf = enc(*planes, *prev, i_f, [fi] * n)
-        res.update({f"y{fi}": ry.numpy(), f"u{fi}": ru.numpy(), f"v{fi}": rv.numpy(),
-                    f"words{fi}": fw.numpy(), f"bits{fi}": fb.numpy(),
-                    f"ovf{fi}": ovf.numpy()})
-        prev = (ry, ru, rv)
+    try:
+        for fi in range(3):
+            planes = [torch.from_numpy(np.stack([vids[s][fi][i][ly] for s in streams]))
+                      for i in range(3)]
+            i_f = torch.tensor([batch_i_frames(fi)[s] for s in streams], dtype=torch.int32)
+            ry, ru, rv, fw, fb, ovf = enc(*planes, *prev, i_f,
+                                          torch.full((n,), fi, dtype=torch.int32))
+            # the program's outputs are rewritten by its next call
+            res.update({f"y{fi}": ry.numpy().copy(), f"u{fi}": ru.numpy().copy(),
+                        f"v{fi}": rv.numpy().copy(), f"words{fi}": fw.numpy().copy(),
+                        f"bits{fi}": fb.numpy().copy(), f"ovf{fi}": ovf.numpy().copy()})
+            prev = (ry, ru, rv)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     _save(out, f"batch2d_r{rank}", streams=np.array([streams.start, streams.stop]),
-          rows=np.array([rows.start, rows.stop]), **res)
+          rows=np.array([rows.start, rows.stop]),
+          calls=np.array([calls[k] for k in BATCH_COLLECTIVES]), **res)
 
 
 def case_batch_encoder(world, rank, out):
