@@ -9,18 +9,22 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    prints each kernel's registers and spills, and the count of VABSDIFF4
    (the motion search's byte-SIMD instruction) in me_fused_kernel's SASS;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   1920x1152, 416x64 and 64x64 shapes of bench.py content, exact equality
-   (an integer codec: the tolerance is zero); the motion kernels for I and
-   P frames, and the fused one also against the luma kernel followed by the
-   chroma kernel; the merge kernel as merge_rows and as merge_append (the
+   1920x1152, 720x576 (chroma 360 wide, 8 mod 16), 416x64 and 64x64 shapes
+   of bench.py content, exact equality (an integer codec: the tolerance is
+   zero); the motion kernels for I and P frames, and the fused one also
+   against the luma kernel followed by the chroma kernel; the symbol glue
+   for the P-frame with its header rows, the I-frame past the timecode's
+   hour clamp, a band of rows from first_row 5 and the header rows alone;
+   the merge kernel as merge_rows and as merge_append (the
    frame loop's form) at every seq_bits & 31, cut at a cap and clamped.  At
    1920x1152 both are timed two ways: device time from torch.profiler (the
    kernel alone; all the plain version's kernels), and time per call from
    CUDA events around back-to-back calls, which includes the host's cost
    where the host is the slower side;
-4. stages: the time of each stage of one 1920x1152 P-frame, the merge and
-   append both as two stages (merge_rows, then the plain append) and as the
-   frame loop runs them (merge+append, one kernel);
+4. stages: the time of each stage of one 1920x1152 P-frame, the subsample
+   and the symbol glue as their kernels and as their plain versions, the
+   merge and append both as two stages (merge_rows, then the plain append)
+   and as the frame loop runs them (merge+append, one kernel);
 5. end to end at 1920x1152, 96 frames, vl=3 q=2, IPPP (pframes_count=23):
    (a) the multi-frame path at bench.py's caps must hash to bench.py's
        PAYLOAD_SHA256, then a timed repeat gives MPixels/s;
@@ -92,8 +96,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    8 frames, payload and recon equal to phase 8's encode_frame_core and the
    kernels counted under replay as phase 8 counts them; (b) a one-rank
    NCCL make_sharded_frame_encoder over 16 frames, each recon fed straight
-   back, equal to encode_frame_device frame by frame, F, T, A and M
-   counted once and P twice a frame; wall and device ms a frame, kernels a
+   back, equal to encode_frame_device frame by frame, the subsample, F, T,
+   A and M counted once and the glue and P twice a frame; wall and device ms a frame, kernels a
    frame and the idle share, beside make_sharded_frame_encoder_core (the
    eager factory) in the same run; (c) a one-rank 2-D mesh
    make_sharded_batch_encoder with 4 streams of 1920x1152 in one block,
@@ -131,7 +135,7 @@ INT32_LANES_PER_SM = 64        # Hopper SM: 64 INT32 lanes per clock
 SAD_PER_OP = 4
 WORD_BYTES = 4                 # packed words are 32-bit values, carried as int64 for
                                # the CPU's plain code; the bounds of P, S and M count 4 bytes
-MAIN_PATH = ("me_fused", "transform", "acsym", "pack_slots", "merge_rows")
+MAIN_PATH = ("subsample", "me_fused", "transform", "glue", "acsym", "pack_slots", "merge_rows")
 OFF_PATH = ("me_luma", "chroma_pred", "pack_symbols")
 REPLACES = {
     "transform": "fpga_mpeg2_encoder_tpu/ops/pallas/transform.py:264",
@@ -142,11 +146,16 @@ REPLACES = {
     "me_luma": "fpga_mpeg2_encoder_tpu/ops/pallas/me.py:401",
     "chroma_pred": "fpga_mpeg2_encoder_tpu/ops/pallas/me.py:626",
     "pack_symbols": "fpga_mpeg2_encoder_tpu/ops/pallas/pack.py:199",
+    "glue": "fpga_mpeg2_encoder_tpu/ops/entropy.py:209",
+    "subsample": "fpga_mpeg2_encoder_tpu/ops/colorspace.py:55",
 }
+# the stages that are XLA code inside the JAX package's jitted step, not Pallas
+XLA_STAGES = {"glue": "the non-AC part of symbolize_frame and _header_rows (entropy.py:182)",
+              "subsample": "subsample_420"}
 SOURCES = {k: f"fpga_mpeg2_encoder_tpu_torch/csrc/{f}" for k, f in (
     ("transform", "transform.cu"), ("acsym", "acsym.cu"), ("pack_slots", "pack.cu"),
     ("merge_rows", "pack.cu"), ("me_fused", "me.cu"), ("me_luma", "me.cu"),
-    ("chroma_pred", "me.cu"))}
+    ("chroma_pred", "me.cu"), ("glue", "glue.cu"), ("subsample", "subsample.cu"))}
 SOURCES["pack_symbols"] = "fpga_mpeg2_encoder_tpu_torch/ops/kernels/pack.py"
 REDESIGNED = {"me_fused": "PR 3", "transform": "PR 3", "acsym": "PR 4", "pack_slots": "PR 4",
               "merge_rows": "PR 5", "chroma_pred": "PR 5"}
@@ -154,7 +163,8 @@ TIMED_APPEND = "append s=13"   # the merge kernel's timed check: merge_append, t
 KERNEL_SYMBOLS = {"transform": "transform_kernel", "acsym": "acsym_kernel",
                   "pack_slots": "pack_slots_kernel", "merge_rows": "merge_rows_kernel",
                   "me_fused": "me_fused_kernel", "me_luma": "me_luma_kernel",
-                  "chroma_pred": "chroma_pred_kernel",
+                  "chroma_pred": "chroma_pred_kernel", "glue": "glue_kernel",
+                  "subsample": "subsample_kernel",
                   "pack_symbols": None}   # all its kernels: the slot forming and pack_slots
 
 
@@ -385,6 +395,8 @@ def main():
     from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
+    from fpga_mpeg2_encoder_tpu_torch.ops.kernels import colorspace as k_cs
+    from fpga_mpeg2_encoder_tpu_torch.ops.kernels import glue as k_glue
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
@@ -423,13 +435,21 @@ def main():
     yr, ur = cfg.yr, cfg.ur
     timing = {}
     gen = torch.Generator(device="cpu").manual_seed(0)
-    for (w, h) in ((W, H), (416, 64), (64, 64)):
+    for (w, h) in ((W, H), (720, 576), (416, 64), (64, 64)):
         f0, f1 = make_frames(w, h, 2)
         y0, u0, v0 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f0))
-        y1, u1, v1 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f1))
+        planes1 = tuple(torch.as_tensor(p, device=dev) for p in f1)
+        y1, u1, v1 = colorspace.subsample_420(*planes1)
         nby, nbx = h // 16, w // 16
         n_mb = nby * nbx
         checks = []   # (label, kernel name, kernel call, plain call, (bytes, ops) or None)
+
+        # the subsample: both chroma planes read once and their 4:2:0 planes
+        # written once; three byte averages an output byte (720 px wide: a
+        # chroma width of 360, 8 mod 16)
+        checks.append(("", "subsample", lambda: k_cs.subsample_420(*planes1),
+                       lambda: colorspace.subsample_420(*planes1),
+                       (nbytes(*planes1[1:]) + nbytes(u1, v1), 3 * (u1.numel() + v1.numel()))))
 
         # motion: fused, luma, chroma, I and P; the fused kernel is also held
         # against the luma kernel followed by the chroma kernel
@@ -491,6 +511,33 @@ def main():
                                work if (q_level, label) == (2, "mixed") else None))
         qzig, *_ = k_tf.transform_recon(y1, u1, v1, mr_p.pred_y, mr_p.pred_u,
                                         mr_p.pred_v, mr_p.inter, cfg.q_level)
+        # the symbol glue: the P-frame with its header rows, the I-frame, a
+        # band of rows from first_row 5 without them (the shards' form) and
+        # the header rows alone (the frame tail's); the coefficients, maps
+        # and GOP state read once, zmod, small and the header rows written
+        # once, a nonzero test a coefficient
+        s_w = entropy.HDR_SLOTS + entropy.SLOTS_PER_MB * nbx
+        qzig_i = k_tf.transform_recon(y1, u1, v1, mr_i.pred_y, mr_i.pred_u, mr_i.pred_v,
+                                      mr_i.inter, cfg.q_level)[0]
+        band = tuple(t[1:].contiguous() for t in (qzig, mr_p.inter, mr_p.mvx, mr_p.mvy))
+        gop5 = torch.full((), 5, dtype=torch.int32, device=dev)
+        for label, g_args, i_f, fno, first_row, hs in (
+                ("P", (qzig, mr_p.inter, mr_p.mvx, mr_p.mvy), 1, 1, 0, s_w),
+                ("I", (qzig_i, mr_i.inter, mr_i.mvx, mr_i.mvy), 0, 24 * 3600 * 64, 0, s_w),
+                ("rows from 5", band, gop5, 1441, 5, None)):
+            glue_io = nbytes(*g_args, *entropy.ac_inputs(*g_args, i_f, cfg.q_level)) \
+                + 2 * (hs or 0) * 4 + 8
+            checks.append((label, "glue",
+                           lambda a=(g_args, i_f, fno, first_row, hs): tuple(
+                               t for t in k_glue.symbol_glue(*a[0], a[1], a[2], cfg.q_level,
+                                                             a[3], a[4]) if t is not None),
+                           lambda a=(g_args, i_f, fno, first_row, hs): (
+                               *entropy.ac_inputs(*a[0], a[1], cfg.q_level, a[3]),
+                               *((entropy._header_rows(a[1], a[2], a[4], dev),)
+                                 if a[4] else ())),
+                           (glue_io, 384 * n_mb) if label == "P" else None))
+        checks.append(("header rows", "glue", lambda: (k_glue.header_rows(1, 1, 16, dev),),
+                       lambda: (entropy._header_rows(1, 1, 16, dev),), None))
         ac_args = entropy.ac_inputs(qzig, mr_p.inter, mr_p.mvx, mr_p.mvy, 1, cfg.q_level)
         # acsym reads zmod and only the non-AC slots of small (16 a
         # macroblock, 3 a slice header) and writes the whole grid
@@ -581,7 +628,8 @@ def main():
     y0, u0, v0 = colorspace.subsample_420(fy[0], fu[0], fv[0])
     kw = dict(yr=yr, ur=ur, q_level=cfg.q_level)
     st = {}
-    st["subsample"] = cuda_ms(lambda: colorspace.subsample_420(fy[1], fu[1], fv[1]))
+    st["subsample (plain)"] = cuda_ms(lambda: colorspace.subsample_420(fy[1], fu[1], fv[1]))
+    st["subsample (kernel)"] = cuda_ms(lambda: k_cs.subsample_420(fy[1], fu[1], fv[1]))
     y, u, v = colorspace.subsample_420(fy[1], fu[1], fv[1])
     st["motion (kernel)"] = cuda_ms(lambda: k_me.estimate_and_predict_planes(
         y, u, v, y0, u0, v0, False, yr, ur))
@@ -593,6 +641,8 @@ def main():
     qzig = k_tf.transform_recon(*targs)[0]
     eargs = (qzig, mr.inter, mr.mvx, mr.mvy, 1, cfg.q_level)
     st["symbol glue (plain)"] = cuda_ms(lambda: entropy.ac_inputs(*eargs))
+    st["symbol glue (kernel)"] = cuda_ms(lambda: k_glue.symbol_glue(*eargs[:5], 1,
+                                                                    cfg.q_level))
     ac_args = entropy.ac_inputs(*eargs)
     st["acsym (kernel)"] = cuda_ms(lambda: k_acsym.ac_slot_grid(*ac_args))
     slots = entropy.symbolize_frame(*eargs[:5], 1, cfg.q_level)
@@ -742,9 +792,10 @@ def main():
 
     loop_ms = cuda_ms(batch_loop, reps=1, warmup=1)
     # the profiler's cost grows with its events: profile 4 frames a stream,
-    # against the same window's time without it
+    # against the same window's time without it, after a warm-up call (4
+    # frames take another sequence cap, so another program is captured)
     npf7 = 4
-    window_ms = cuda_ms(lambda: batch_loop(npf7), reps=1, warmup=0)
+    window_ms = cuda_ms(lambda: batch_loop(npf7), reps=1, warmup=1)
     ev = profile_events(lambda: batch_loop(npf7), 1)
     busy7 = sum(e.time_range.elapsed_us() for e in ev) / 1e3
     del stacks
@@ -797,8 +848,9 @@ def main():
     finally:
         k_me.motion_estimate_fused = fused
     launches8 = dict(_build.LAUNCHES)
-    want8 = {"me_fused": nsh * nf8, "transform": nsh * nf8, "acsym": nsh * nf8,
-             "pack_slots": (nsh + 1) * nf8, "merge_rows": nf8}
+    want8 = {"subsample": nsh * nf8, "me_fused": nsh * nf8, "transform": nsh * nf8,
+             "glue": (nsh + 1) * nf8, "acsym": nsh * nf8, "pack_slots": (nsh + 1) * nf8,
+             "merge_rows": nf8}
     if any(launches8[k] != n for k, n in want8.items()):
         raise AssertionError(f"8: launches {launches8}, expected {want8}")
     firsts = sorted({r for halo, r in bands if halo})
@@ -1125,11 +1177,13 @@ def main():
                 return out
 
             def per_frame(tag, streams):
-                """Each kernel's launches in the program's frame: F, T, A and
-                M once a stream, P twice (its rows and the header rows)."""
+                """Each kernel's launches in the program's frame: the
+                subsample, F, T, A and M once a stream, the glue and P twice
+                (its rows and the header rows)."""
                 torch.cuda.synchronize()
                 got = {k: v for k, v in _build.LAUNCHES.items() if v}
-                want = {k: (2 if k == "pack_slots" else 1) * streams for k in MAIN_PATH}
+                want = {k: (2 if k in ("pack_slots", "glue") else 1) * streams
+                        for k in MAIN_PATH}
                 if got != want:
                     raise AssertionError(f"{tag}: launches {got} under replay, expected {want}")
                 return got
@@ -1230,6 +1284,9 @@ def main():
                "max_abs_err": err, **t}
         if kname in REDESIGNED:
             row["redesigned"] = REDESIGNED[kname]
+        if kname in XLA_STAGES:
+            row["note"] = (f"replaces XLA code of the JAX package's jitted frame step "
+                           f"({XLA_STAGES[kname]}), not a Pallas kernel")
         if kname == "pack_symbols":
             row["note"] = ("wrapper over pack_slots: forms the slots and launches the "
                            "pack_slots kernel, no kernel of its own")

@@ -1,9 +1,10 @@
 """The encoder: per-frame pipeline + sequence runtime, in PyTorch.
 
 Pipeline per frame (all macroblocks batched):
-  4:2:0 subsample -> motion-estimation kernel (search + prediction) -> transform kernel
-  (residual, DCT, quantise, dequantise, IDCT, reconstruction) -> symbolisation
-  (AC symbols through the acsym kernel) -> pack kernel (one bit-string per
+  4:2:0 subsample kernel -> motion-estimation kernel (search + prediction) ->
+  transform kernel (residual, DCT, quantise, dequantise, IDCT, reconstruction)
+  -> symbolisation (the glue kernel: headers, macroblock type, MV, CBP, DC and
+  EOB slots; the acsym kernel: AC symbols) -> pack kernel (one bit-string per
   slot row) -> merge kernel (the rows, GOP/picture headers included, merged
   byte-aligned straight into the sequence buffer by the multi-frame path, or
   into one frame payload by push_frame).
@@ -41,7 +42,8 @@ import torch
 
 from ..config import EncoderConfig, SequenceConfig
 from ..core.bitstream import BitWriter, SEQUENCE_END_CHUNKS, sequence_header_chunks
-from ..ops import colorspace, entropy
+from ..ops import entropy
+from ..ops.kernels import colorspace as k_colorspace
 from ..ops.kernels import me as k_me
 from ..ops.kernels import pack as k_pack
 from ..ops.kernels import transform as k_transform
@@ -58,7 +60,7 @@ def symbolize_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
     """The pipeline up to symbolisation: (recon_y, recon_u, recon_v, slots
     (2 + nby, S) int32).  ``i_frame`` and ``frame_no`` are ints or 0-d
     tensors on the frame's device."""
-    y, u, v = colorspace.subsample_420(y444, u444, v444)
+    y, u, v = k_colorspace.subsample_420(y444, u444, v444)
     mr = k_me.estimate_and_predict_planes(y, u, v, prev_y, prev_u, prev_v,
                                           i_frame == 0, yr, ur)
     quant_zig, recon_y, recon_u, recon_v = k_transform.transform_recon(

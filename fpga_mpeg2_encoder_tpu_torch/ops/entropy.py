@@ -22,8 +22,9 @@ headers as the first two rows.  A slot is one int32 holding the bit pattern
 of the uint32 ``code | len << 27``, so a slot of length >= 16 is negative:
 read slots through `slot_len` and `slot_u32`.  A zero-length slot emits
 nothing, whatever its code.
-The AC slots are filled by ops/kernels/acsym.py (its plain version is
-`ac_slot_grid` below).
+The non-AC slots and the header rows are formed by ops/kernels/glue.py (its
+plain version is `ac_inputs` and `_header_rows` below), the AC slots by
+ops/kernels/acsym.py (its plain version is `ac_slot_grid`).
 """
 from __future__ import annotations
 
@@ -79,8 +80,11 @@ _DCY_TAB = (T.BITS_DC_Y.astype(np.int64) << 5) | T.LENS_DC_Y
 _DCUV_TAB = (T.BITS_DC_UV.astype(np.int64) << 5) | T.LENS_DC_UV
 
 
-_TABLES = {"ac": AC_TABLE, "mv": _MV_TAB, "cbp": _CBP_TAB, "dcy": _DCY_TAB,
-           "dcuv": _DCUV_TAB}
+# The DC size lookups get an empty entry for size 12 (a DC difference of
+# 2048 or more, which pixels never give): the JAX package's one-hot lookup
+# gives 0 there, so the size code is empty and the value keeps its 12 bits.
+_TABLES = {"ac": AC_TABLE, "mv": _MV_TAB, "cbp": _CBP_TAB,
+           "dcy": np.append(_DCY_TAB, 0), "dcuv": np.append(_DCUV_TAB, 0)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -236,16 +240,20 @@ def symbolize_frame(
                                     # packs the header rows on their own)
 ) -> torch.Tensor:
     """-> (2 + nby, S) int32 slot grid, S = 3 + 394 * nbx; (nby, S) without
-    the header rows."""
-    # imported here: the kernel wrapper imports this module
+    the header rows.  The glue kernel forms everything but the AC symbols
+    (ac_inputs and _header_rows are its plain version), the acsym kernel
+    the AC symbols."""
+    # imported here: the kernel wrappers import this module
     from .kernels.acsym import ac_slot_grid as ac_slot_grid_dispatch
+    from .kernels.glue import symbol_glue
 
-    slice_slots = ac_slot_grid_dispatch(
-        *ac_inputs(quant_zig, inter, mvx, mvy, i_frame, q_level, first_row))
+    s = HDR_SLOTS + SLOTS_PER_MB * inter.shape[1]
+    zmod, small, hdr = symbol_glue(quant_zig, inter, mvx, mvy, i_frame, frame_no, q_level,
+                                   first_row, s if include_headers else None)
+    slice_slots = ac_slot_grid_dispatch(zmod, small)
     if not include_headers:
         return slice_slots
-    return torch.cat([_header_rows(i_frame, frame_no, slice_slots.shape[1],
-                                   inter.device), slice_slots], dim=0)
+    return torch.cat([hdr, slice_slots], dim=0)
 
 
 def ac_inputs(quant_zig: torch.Tensor, inter: torch.Tensor, mvx: torch.Tensor,

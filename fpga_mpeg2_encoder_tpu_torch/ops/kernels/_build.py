@@ -29,7 +29,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("transform.cu", "acsym.cu", "pack.cu", "me.cu")
+SOURCES = ("transform.cu", "acsym.cu", "pack.cu", "me.cu", "glue.cu", "subsample.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,7 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # replayed step had launched its kernels one by one.
 LAUNCHES: Dict[str, int] = {"transform": 0, "acsym": 0, "pack_slots": 0,
                             "merge_rows": 0, "me_fused": 0, "me_luma": 0,
-                            "chroma_pred": 0}
+                            "chroma_pred": 0, "glue": 0, "subsample": 0}
 _tally: Optional[Dict[str, int]] = None     # the open capture's, if any
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -56,6 +56,8 @@ _SIGNATURES = {
     "mpeg2_me_fused": [_P] * 11 + [_I] * 7 + [_P],
     "mpeg2_me_luma": [_P] * 7 + [_I] * 7 + [_P],
     "mpeg2_chroma_pred": [_P] * 7 + [_I] * 4 + [_P],
+    "mpeg2_glue": [_P] * 15 + [_I] * 5 + [_P],
+    "mpeg2_subsample": [_P] * 4 + [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -43,7 +43,9 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..models.encoder import DEFAULT_FRAME_CAP, DEFAULT_ROW_CAP, _copy_in
-from ..ops import colorspace, entropy, motion
+from ..ops import entropy, motion
+from ..ops.kernels import colorspace as k_colorspace
+from ..ops.kernels import glue as k_glue
 from ..ops.kernels import me as k_me
 from ..ops.kernels import pack as k_pack
 from ..ops.kernels import transform as k_transform
@@ -65,7 +67,7 @@ def make_local_step(nby: int, *, yr: int, ur: int, q_level: int, row_cap: int) -
     recon_v, row words (rows/16, row_cap) int64, row bits (rows/16,) int64,
     overflow () bool)."""
     def local_step(y, u, v, py_h, pu_h, pv_h, i_frame, frame_no, first_row: int):
-        ys, us, vs = colorspace.subsample_420(y, u, v)
+        ys, us, vs = k_colorspace.subsample_420(y, u, v)
         mr = k_me.estimate_and_predict_local(ys, py_h, pu_h, pv_h, i_frame == 0, yr, ur,
                                              first_row, nby, as_planes=True)
         quant_zig, ry, ru, rv = k_transform.transform_recon(
@@ -92,9 +94,9 @@ def frame_tail(rows_w: torch.Tensor, rows_b: torch.Tensor, rows_ovf: torch.Tenso
     their overflow flag, with the GOP position and the frame number (0-d
     int32 tensors on the rows' device, or host ints) -> (frame words
     (frame_cap,) int64, frame bits, overflow): the GOP/picture header rows
-    packed by the pack kernel, put before the rows and merged by the merge
+    formed by the glue kernel and packed by the pack kernel, put before the rows and merged by the merge
     kernel."""
-    hdr = entropy._header_rows(i_frame, frame_no, HEADER_SLOTS, rows_w.device)
+    hdr = k_glue.header_rows(i_frame, frame_no, HEADER_SLOTS, rows_w.device)
     hw, hb, hovf = k_pack.pack_slots(hdr, row_cap)
     fwords, fbits = k_pack.merge_rows(torch.cat([hw, rows_w]), torch.cat([hb, rows_b]),
                                       frame_cap)

@@ -4,6 +4,8 @@
     python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py transform.cu
     python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py acsym.cu
     python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py pack.cu
+    python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py glue.cu
+    python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py subsample.cu
 
 Each mutant breaks one exactness trap (or one step of the design) of the
 kernel source with a one-line change.  It runs in its own copy of the port
@@ -159,6 +161,48 @@ MUTANTS = {
         # inclusive publish before it clears the word has no mutant: without
         # it, a publish could land after the clear only under a reordering
         # of the memory system that no test can provoke at will.
+    ]),
+    "glue.cu": ("glue", [
+        # a length >= 16 sets a slot's sign bit as int32: kept in uint32
+        ("slot_len_high_bit", "return code | (len << 27);", "return code | ((len & 15u) << 27);"),
+        ("mv_wrap", "+ 16u) & 31u) - 16;", "+ 15u) & 31u) - 15;"),
+        ("mv_pred_row_start", "const bool left_inter = bx > 0 && inter[mb - 1];",
+         "const bool left_inter = mb > 0 && inter[mb - 1];"),
+        ("dc_negative_diff", "val = (val + (1u << vallen) - 1u) & 0xFFFu;",
+         "val = (val + (1u << vallen)) & 0xFFFu;"),
+        # Dropping the mask to vallen bits has no effect (after the 12-bit
+        # wrap the value is already below 2^vallen, for every difference in
+        # +-2^16), so its mutant masks one bit too few.
+        ("dc_value_mask", "val &= (1u << vallen) - 1u;", "val &= (1u << vallen) - 2u;"),
+        ("dc_size_12", "for (int k = 0; k < 12; k++) vallen", "for (int k = 0; k < 11; k++) vallen"),
+        ("dc_pred_tile3", "const int t = lane == 0 ? 3 : lane;", "const int t = lane == 0 ? 0 : lane;"),
+        ("dc_pred_row_start", "const bool left_intra = bx > 0 && !inter[mb - 1];",
+         "const bool left_intra = mb > 0 && !inter[mb - 1];"),
+        ("hour_clamp", "min(fno / (24 * 3600), 63)", "min(fno / (24 * 3600), 64)"),
+        ("minute_wrap", "((fno / (24 * 60)) % 60)", "((fno / (24 * 60)) % 64)"),
+        ("temporal_ref", "case 8: dyn = (uint32_t)i_f; break;", "case 8: dyn = 0u; break;"),
+        ("intra_type_in_p", "intra && is_p ? slot(0x23u, 6u)", "intra ? slot(0x23u, 6u)"),
+        ("eob_gated_by_nz", "slot(2u, 2u * ((nz >> lane) & 1u))", "slot(2u, 2u)"),
+        ("inter_dc_minus_one", "else if (dc == 1 || dc == -1)", "else if (dc == 1)"),
+        ("inter_dc_zero_empty", "dc_slot = put_ac_run0(1, s_ac) & ((1u << 27) - 1);",
+         "dc_slot = put_ac_run0(1, s_ac);"),
+        ("inter_dc_b14_edge", "am1 <= 39 ? (int)am1 + 56", "am1 <= 40 ? (int)am1 + 56"),
+        ("cbp_bit_order", "const uint32_t cbp = __brev(nz) >> 26;", "const uint32_t cbp = nz;"),
+        ("emit_flag", "o.x = intra || o.x != 0;", "o.x = o.x != 0;"),
+        ("slice_row_number", "(uint32_t)(first_row + mb / nbx)", "(uint32_t)(mb / nbx)"),
+        ("span_head", "if (tid < a0 - first) small", "if (tid + 1 < a0 - first) small"),
+        ("span_tail", "if (tid < end - a1) small", "if (tid + 1 < end - a1) small"),
+        ("header_tail", "for (int i = 0; i < stop - w; i++)", "for (int i = 0; i + 1 < stop - w; i++)"),
+    ]),
+    "subsample.cu": ("subsample", [
+        ("rounding_plus_one", "return __vavgu4(lower, upper);", "return __vhaddu4(lower, upper);"),
+        ("rounding_order", "__vavgu4(te, to), lower = __vavgu4(be, bo);",
+         "__vavgu4(te, be), lower = __vavgu4(to, bo);"),
+        ("pair_bytes", "__byte_perm(t0, t1, 0x6420)", "__byte_perm(t0, t1, 0x5420)"),
+        ("second_row", "*reinterpret_cast<const uint4*>(src + w);",
+         "*reinterpret_cast<const uint4*>(src + 2 * w);"),
+        ("output_column", "(long long)r * (w / 2) + 8 * g", "(long long)r * (w / 2) + 4 * g"),
+        ("plane_select", "(second ? v : u)", "(second ? u : v)"),
     ]),
 }
 

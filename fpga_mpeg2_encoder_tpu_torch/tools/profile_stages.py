@@ -6,9 +6,10 @@
 The stages of the frame loop's step (models/encoder.encode_gop_scan_core's
 body: encode_frame_core with the merge in its append form), each run alone
 under torch.profiler on inputs that the previous stages computed beforehand:
-subsample; motion (the fused motion kernel, F); transform (T); the symbol
-glue (entropy.ac_inputs, the header rows and their concatenation, plain
-torch); acsym (A); pack_slots (P); merge+append (M).  Then the whole step
+subsample (the subsample kernel, D); motion (the fused motion kernel, F);
+transform (T); the symbol glue (the glue kernel, G, with the header rows,
+and their concatenation with the slot grid); acsym (A); pack_slots (P);
+merge+append (M).  Then the whole step
 under the profiler.  Each rep is another frame of bench.py's content (a
 P-frame against the recon of the frame before it, encoded as an I-frame),
 so no two reps see the same input.  For each stage: the device time of its
@@ -35,9 +36,10 @@ import torch  # noqa: E402
 
 from fpga_mpeg2_encoder_tpu_torch import EncoderConfig  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.models import encoder as M  # noqa: E402
-from fpga_mpeg2_encoder_tpu_torch.ops import colorspace, entropy  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym  # noqa: E402
+from fpga_mpeg2_encoder_tpu_torch.ops.kernels import colorspace as k_cs  # noqa: E402
+from fpga_mpeg2_encoder_tpu_torch.ops.kernels import glue as k_glue  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf  # noqa: E402
@@ -72,19 +74,18 @@ def stage_calls(dev, w, h, streams=1, reps=8, cfg=EncoderConfig(xl=7, yl=7)):
             before = tuple(torch.as_tensor(p, device=dev) for p in pool[k - 1])
             prev = M.encode_frame_core(*before, zy, zc, zc, 0, k - 1, yr=yr, ur=ur,
                                        q_level=q, **CAPS)[:3]
-            y, u, v = colorspace.subsample_420(*cur)
+            y, u, v = k_cs.subsample_420(*cur)
             mr = k_me.estimate_and_predict_planes(y, u, v, *prev, False, yr, ur)
             targs = (y, u, v, mr.pred_y, mr.pred_u, mr.pred_v, mr.inter, q)
             qzig = k_tf.transform_recon(*targs)[0]
             eargs = (qzig, mr.inter, mr.mvx, mr.mvy, 1, q)
-            ac = entropy.ac_inputs(*eargs)
+            ac = k_glue.symbol_glue(*eargs[:5], k, q)[:2]
             grid = k_acsym.ac_slot_grid(*ac)
-            slots = entropy.symbolize_frame(*eargs[:5], k, q)
+            slots = torch.cat([k_glue.header_rows(1, k, grid.shape[1], dev), grid])
             rw, rb, _ = k_pack.pack_slots(slots, CAPS["row_cap"])
 
             def glue(e=eargs, g=grid, fno=k):
-                z, small = entropy.ac_inputs(*e)
-                hdr = entropy._header_rows(1, fno, g.shape[1], g.device)
+                z, small, hdr = k_glue.symbol_glue(*e[:5], fno, q, 0, g.shape[1])
                 return z, small, torch.cat([hdr, g])
 
             def whole(c=cur, p=prev, fno=k):
@@ -94,7 +95,7 @@ def stage_calls(dev, w, h, streams=1, reps=8, cfg=EncoderConfig(xl=7, yl=7)):
                 return (ry, ru, rv, ovf,
                         *k_pack.merge_append(seq_w, seq_b, words, bits, CAPS["frame_cap"]))
 
-            calls["subsample"].append(lambda c=cur: colorspace.subsample_420(*c))
+            calls["subsample"].append(lambda c=cur: k_cs.subsample_420(*c))
             calls["motion"].append(lambda a=(y, u, v, *prev): k_me.estimate_and_predict_planes(
                 *a, False, yr, ur))
             calls["transform"].append(lambda a=targs: k_tf.transform_recon(*a))

@@ -29,6 +29,8 @@ from fpga_mpeg2_encoder_tpu_torch.golden import encoder as G
 from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
+from fpga_mpeg2_encoder_tpu_torch.ops.kernels import colorspace as k_colorspace
+from fpga_mpeg2_encoder_tpu_torch.ops.kernels import glue as k_glue
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
@@ -43,7 +45,7 @@ from fpga_mpeg2_encoder_tpu_torch.utils.testdata import (
     GOLDEN_MATRIX, chroma_maps, random_sequence, video)
 
 pytestmark = pytest.mark.cuda
-MAIN_PATH = ("me_fused", "transform", "acsym", "pack_slots", "merge_rows")
+MAIN_PATH = ("subsample", "me_fused", "transform", "glue", "acsym", "pack_slots", "merge_rows")
 
 
 @pytest.fixture
@@ -189,6 +191,175 @@ def test_acsym_kernel_cases(dev, nby, nbx):
     assert torch.equal(got, want)
     lens = entropy.slot_len(want)
     assert bool((lens == 24).any()) and bool((want < 0).any())
+
+
+# ---- the symbol glue and subsample kernels ------------------------------------
+
+GOP_FRAMES = [(0, 0), (3, 1439), (1, 1440), (5, 86399), (2, 86400), (0, 64 * 86400 + 1234)]
+
+
+def _glue_equal(q, inter, mvx, mvy, i_frame, frame_no, q_level, first_row, header_slots):
+    """The glue kernel (one launch) against entropy.ac_inputs and
+    _header_rows on the same card."""
+    got = _launched("glue", lambda: k_glue.symbol_glue(q, inter, mvx, mvy, i_frame, frame_no,
+                                                       q_level, first_row, header_slots))
+    zmod, small = entropy.ac_inputs(q, inter, mvx, mvy, i_frame, q_level, first_row)
+    assert got[0].dtype == got[1].dtype == torch.int32
+    assert got[0].data_ptr() % 16 == 0                       # acsym's vector loads
+    assert torch.equal(got[0], zmod) and torch.equal(got[1], small)
+    if header_slots is None:
+        assert got[2] is None
+    else:
+        assert torch.equal(got[2], entropy._header_rows(i_frame, frame_no, header_slots,
+                                                        q.device))
+    return got
+
+
+@pytest.mark.parametrize("w,h", [(1920, 1152), (720, 576), (416, 64), (64, 64)])
+@pytest.mark.parametrize("i_frame", [0, 1])
+def test_glue_kernel_equals_plain(dev, w, h, i_frame):
+    """The glue kernel on a frame's real operands (the subsample, motion and
+    transform kernels' outputs), I and P, the whole frame with its header
+    rows and a band of rows from first_row 5 without them."""
+    f0, f1 = video(w + h, w, h, 2)
+    p0 = k_colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f0))
+    p1 = k_colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f1))
+    mr = k_me.estimate_and_predict_planes(*p1, *p0, i_frame == 0, 6, 3)
+    q = k_tf.transform_recon(*p1, mr.pred_y, mr.pred_u, mr.pred_v, mr.inter, 2)[0]
+    s = 3 + 394 * (w // 16)
+    _glue_equal(q, mr.inter, mr.mvx, mr.mvy, i_frame, 7 + i_frame, 2, 0, s)
+    rows = slice(1, h // 16)
+    band = [t[rows].contiguous() for t in (q, mr.inter, mr.mvx, mr.mvy)]
+    _glue_equal(*band, torch.tensor(i_frame, dtype=torch.int32, device=dev), 7, 4, 5, None)
+
+
+def _glue_operands(dev, nby, nbx, seed, kind):
+    """quant_zig, inter, mvx, mvy on ``dev``: "mixed" (sparse levels, DCs
+    of every small size, all-zero tiles, inter DCs of 0 and +-1, intra
+    macroblocks among inter ones), "extreme" (DCs at +-2047 and +-2048, so
+    DC differences of size 12; escaped inter DCs; B.14's run-0 edge at
+    +-40, +-41; MVs at the int32 range's ends and differences of +-16
+    and +-31), "zero" (every macroblock inter and empty) or "intra"."""
+    rng = np.random.default_rng(seed)
+    zig = np.zeros((nby, nbx, 6, 64), np.int32)
+    m = rng.random(zig.shape) < 0.1
+    zig[m] = rng.integers(-60, 61, m.sum())
+    zig[..., 0] = rng.integers(-300, 301, (nby, nbx, 6))
+    zig[rng.random((nby, nbx, 6)) < 0.2] = 0
+    few = rng.random((nby, nbx, 6)) < 0.3
+    zig[..., 0][few] = rng.choice([-1, 0, 1], few.sum())
+    inter = rng.random((nby, nbx)) < 0.6
+    mvx = rng.integers(-16, 17, (nby, nbx)).astype(np.int32)
+    mvy = rng.integers(-16, 17, (nby, nbx)).astype(np.int32)
+    if kind == "extreme":
+        zig[..., 0] = rng.choice([-2048, -2047, -41, -40, 40, 41, 2047, -1, 1], (nby, nbx, 6))
+        mvx[0] = np.iinfo(np.int32).max
+        mvx[-1] = np.iinfo(np.int32).min
+        mvy[:, ::2] = -16
+        mvy[:, 1::2] = 15
+    elif kind == "zero":
+        zig[:] = 0
+        inter[:] = True
+    elif kind == "intra":
+        inter[:] = False
+    return tuple(torch.as_tensor(a, device=dev) for a in (zig, inter, mvx, mvy))
+
+
+@pytest.mark.parametrize("nby,nbx", [(5, 1), (3, 26), (2, 120), (7, 3), (1, 128)])
+@pytest.mark.parametrize("kind", ["mixed", "extreme", "zero", "intra"])
+def test_glue_kernel_cases(dev, nby, nbx, kind):
+    """Made-up operands at nbx 1 (a slice header before every macroblock),
+    26, 120, 128 and 3 (7 x 3 is no multiple of the block's 8 macroblocks),
+    over the GOP positions and frame numbers that cross the timecode's
+    rollovers and the hour's clamp, with the header rows (their width odd,
+    so their tail is two words) and without."""
+    ops = _glue_operands(dev, nby, nbx, 10 * nby + nbx, kind)
+    s = 3 + 394 * nbx
+    for k, (i_frame, frame_no) in enumerate(GOP_FRAMES):
+        gop = torch.tensor(i_frame, dtype=torch.int32, device=dev) if k % 2 else i_frame
+        got = _glue_equal(*ops, gop, frame_no, 1 + k % 4, 3 * k, s if k % 3 else None)
+    lens = entropy.slot_len(got[1])
+    if kind == "extreme":
+        assert bool((lens == 24).any())
+
+
+@pytest.mark.parametrize("s", [16, 3 + 394 * 4, 3 + 394 * 120])
+def test_glue_kernel_header_rows_alone(dev, s):
+    """The frame tail's launch (no macroblock): the header rows for I and P
+    frames across the timecode's rollovers and the hour's clamp."""
+    for i_frame, frame_no in GOP_FRAMES + [(1, 2**31 - 1)]:
+        got = _launched("glue", lambda: k_glue.header_rows(i_frame, frame_no, s, dev))
+        assert torch.equal(got, entropy._header_rows(i_frame, frame_no, s, dev))
+
+
+def test_graph_glue_reads_the_gop_state_at_replay(dev):
+    """A captured glue launch reads the GOP position and the frame number
+    from device memory: changed between replays, each replay's slots and
+    header rows equal the plain version's for the new values, one launch
+    counted a replay."""
+    ops = _glue_operands(dev, 3, 26, 5, "mixed")
+    i_t = torch.zeros((), dtype=torch.int32, device=dev)
+    f_t = torch.zeros((), dtype=torch.int32, device=dev)
+    s = 3 + 394 * 26
+    step = graphs.Step(lambda: k_glue.symbol_glue(*ops, i_t, f_t, 2, 4, s), dev)
+    for i_frame, frame_no in GOP_FRAMES:
+        i_t.fill_(i_frame)
+        f_t.fill_(frame_no)
+        _build.reset_launches()
+        zmod, small, hdr = step()
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["glue"] == 1
+        want = entropy.ac_inputs(*ops, i_frame, 2, 4)
+        assert torch.equal(zmod, want[0]) and torch.equal(small, want[1])
+        assert torch.equal(hdr, entropy._header_rows(i_frame, frame_no, s, dev))
+
+
+def _subsample_planes(dev, w, h, kind):
+    rng = np.random.default_rng(w + h)
+    if kind == "noise":
+        planes = [rng.integers(0, 256, (h, w), dtype=np.uint8) for _ in range(3)]
+    else:
+        # 2x2 cells whose horizontal-then-vertical means differ from the
+        # other order's and from one mean of four
+        cells = np.array([[[2, 0], [1, 1]], [[255, 254], [254, 254]], [[0, 255], [255, 0]],
+                          [[1, 0], [0, 0]]], np.uint8)
+        plane = cells[rng.integers(0, 4, (h // 2, w // 2))].transpose(0, 2, 1, 3).reshape(h, w)
+        planes = [plane, plane, np.ascontiguousarray(plane[::-1])]
+    return [torch.as_tensor(p, device=dev) for p in planes]
+
+
+@pytest.mark.parametrize("w,h", [(1920, 1152), (720, 576), (416, 64), (64, 64), (48, 32)])
+@pytest.mark.parametrize("kind", ["noise", "cells", "video"])
+def test_subsample_kernel_equals_plain(dev, w, h, kind):
+    """Both chroma planes in one launch against the plain version; chroma
+    widths 360 and 24 are 8 mod 16.  Y is passed through as it is."""
+    planes = ([torch.as_tensor(p, device=dev) for p in video(w, w, h, 1)[0]]
+              if kind == "video" else _subsample_planes(dev, w, h, kind))
+    got = _launched("subsample", lambda: k_colorspace.subsample_420(*planes))
+    want = colorspace.subsample_420(*planes)
+    assert got[0] is planes[0]
+    for g, wnt in zip(got[1:], want[1:]):
+        assert g.dtype == torch.uint8 and g.is_contiguous() and torch.equal(g, wnt)
+
+
+def test_glue_subsample_wrappers_check_inputs(dev):
+    q, inter, mvx, mvy = _glue_operands(dev, 2, 3, 0, "mixed")
+    odd = torch.zeros(q.numel() + 1, dtype=torch.int32, device=dev)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):                # 16-byte loads
+        k_glue.symbol_glue(odd, inter, mvx, mvy, 0, 0, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        k_glue.symbol_glue(q, inter, mvx.to(torch.int64), mvy, 0, 0, 2)
+    with pytest.raises(ValueError, match="GOP state"):
+        k_glue.symbol_glue(q, inter, mvx, mvy, torch.zeros(2, dtype=torch.int32,
+                                                           device=dev), 0, 2)
+    y = torch.zeros((32, 48), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        k_colorspace.subsample_420(y, y[:, :40], y[:, :40])
+    flat = torch.zeros(32 * 48 + 1, dtype=torch.uint8, device=dev)[1:].view(32, 48)
+    with pytest.raises(ValueError, match="aligned"):
+        k_colorspace.subsample_420(y, flat, y)
+    with pytest.raises(ValueError, match="several devices"):
+        k_colorspace.subsample_420(y, y.cpu(), y)
 
 
 def _slots(dev, r, s, seed, density=0.5, dirty=False):
@@ -921,6 +1092,51 @@ def test_graph_me_kernels_take_the_flag_from_device_memory(dev):
                    want[:4])
 
 
+def test_graph_paths_never_run_the_plain_glue_or_subsample_on_the_card(dev, monkeypatch):
+    """On the card the main path (encode_gop_scan, encode_frame_device and
+    the eager encode_gop_scan_core), the shards (make_shards_encoder, and
+    local_step with frame_tail) and BatchEncoder reach the glue and
+    subsample kernels only: entropy.ac_inputs, entropy._header_rows and
+    colorspace.subsample_420 raise here on a CUDA tensor, and every program
+    is captured anew under that."""
+    def card_guard(fn):
+        def guarded(*args, **kwargs):
+            if any(torch.is_tensor(a) and a.is_cuda for a in (*args, *kwargs.values())) \
+                    or any(isinstance(a, torch.device) and a.type == "cuda" for a in args):
+                raise AssertionError(f"{fn.__name__} ran on the card")
+            return fn(*args, **kwargs)
+        return guarded
+
+    for mod, name in ((entropy, "ac_inputs"), (entropy, "_header_rows"),
+                      (colorspace, "subsample_420")):
+        monkeypatch.setattr(mod, name, card_guard(getattr(mod, name)))
+    graphs.clear()
+    w, h, kw = 416, 128, dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=65536)
+    stacks = _stacks(dev, w, h, 3, 11)
+    zy = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev)
+    _build.reset_launches()
+    M.encode_gop_scan(*stacks, zy, zc, zc, 0, 0, 2, **kw, seq_cap=65536)
+    M.encode_gop_scan_core(*stacks, zy, zc, zc, 0, 0, 2, **kw, seq_cap=65536)
+    M.encode_frame_device(*(t[0] for t in stacks), zy, zc, zc, 0, 0, **kw)
+    shards = S.make_shards_encoder(dev, 4, h, w, **kw)
+    shards(*(t[1] for t in stacks), zy, zc, zc, 1, 1)
+    step = make_local_step(h // 16, yr=6, ur=3, q_level=2, row_cap=4096)
+    rows = [step(*(t[2][32 * k:32 * (k + 1)] for t in stacks),
+                 band_with_halo(zy, 8, 32 * k, 32 * (k + 1)),
+                 band_with_halo(zc, 4, 16 * k, 16 * (k + 1)),
+                 band_with_halo(zc, 4, 16 * k, 16 * (k + 1)), 2, 2, 2 * k) for k in range(4)]
+    frame_tail(torch.cat([r[3] for r in rows]), torch.cat([r[4] for r in rows]),
+               rows[0][5], 2, 2, row_cap=4096, frame_cap=65536)
+    be = BatchEncoder(EncoderConfig(xl=5, yl=4), SequenceConfig(w, h, 2), 2, device=dev)
+    be.push_chunks([[tuple(p[k].cpu().numpy() for p in stacks) for k in range(2)]] * 2)
+    be.finish()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["glue"] >= 10 and _build.LAUNCHES["subsample"] >= 10, \
+        _build.LAUNCHES
+    graphs.clear()
+
+
 # ---- the sharded programs: local and tail graphs, collectives between -------
 
 def _sharded_equal(got, want, tag):
@@ -938,8 +1154,8 @@ def test_graph_me_pack_shard_programs_equal_core(dev, w, h):
     """The 4 one-process shard programs (make_shards_encoder: a local graph
     a shard, each at its own first_row, then the tail graph) equal
     encode_frame_core over 8 frames IPPP, each fed its recon back; under
-    replay LAUNCHES counts F, T and A 4 times a frame, P 5 (the shards' rows
-    and the header rows) and M once."""
+    replay LAUNCHES counts the subsample, F, T and A 4 times a frame, the
+    glue and P 5 (the shards' rows and the header rows) and M once."""
     kw = dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=262144)
     nf = 8
     enc = S.make_shards_encoder(dev, 4, h, w, **kw)
@@ -953,9 +1169,9 @@ def test_graph_me_pack_shard_programs_equal_core(dev, w, h):
         _build.reset_launches()
         got = enc(*frame, *prev_g, torch.full((), k, dtype=torch.int32, device=dev), k)
         torch.cuda.synchronize()
-        assert _build.LAUNCHES == {"me_fused": 4, "transform": 4, "acsym": 4,
-                                   "pack_slots": 5, "merge_rows": 1, "me_luma": 0,
-                                   "chroma_pred": 0}, _build.LAUNCHES
+        assert _build.LAUNCHES == {"subsample": 4, "me_fused": 4, "transform": 4,
+                                   "glue": 5, "acsym": 4, "pack_slots": 5, "merge_rows": 1,
+                                   "me_luma": 0, "chroma_pred": 0}, _build.LAUNCHES
         _sharded_equal(got, want, k)
         prev_c, prev_g = want[:3], got[:3]
     assert all(graphs._programs[key].step._graph is not None for key in graphs._programs
@@ -990,8 +1206,8 @@ def test_graph_me_pack_one_rank_nccl_program_feeds_back(dev, tmp_path):
     1920x1152 IPPP (GOP position wrapping at 5), each frame's recon passed
     straight back as the next prev (the halo copy and the replay that
     rewrites it are ordered on one stream), equal to encode_frame_device
-    frame by frame; each frame counts F, T, A and M once and P twice, and
-    makes the host wait for the card nowhere."""
+    frame by frame; each frame counts the subsample, F, T, A and M once and
+    the glue and P twice, and makes the host wait for the card nowhere."""
     w, h, nf = 1920, 1152, 16
     kw = dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=262144)
     stacks = _stacks(dev, w, h, nf, 77)
@@ -1010,9 +1226,10 @@ def test_graph_me_pack_one_rank_nccl_program_feeds_back(dev, tmp_path):
             with _no_sync():
                 got = enc(*frame, *prev_s, i_f, fno)
             torch.cuda.synchronize()
-            assert _build.LAUNCHES == {"me_fused": 1, "transform": 1, "acsym": 1,
-                                       "pack_slots": 2, "merge_rows": 1, "me_luma": 0,
-                                       "chroma_pred": 0}, _build.LAUNCHES
+            assert _build.LAUNCHES == {"subsample": 1, "me_fused": 1, "transform": 1,
+                                       "glue": 2, "acsym": 1, "pack_slots": 2,
+                                       "merge_rows": 1, "me_luma": 0, "chroma_pred": 0}, \
+                _build.LAUNCHES
             _sharded_equal(got, want, k)
             prev_d, prev_s = tuple(t.clone() for t in want[:3]), got[:3]
 
@@ -1020,9 +1237,10 @@ def test_graph_me_pack_one_rank_nccl_program_feeds_back(dev, tmp_path):
 def test_graph_me_pack_one_rank_nccl_batch_program(dev, tmp_path):
     """make_sharded_batch_encoder on a 1 x 1 NCCL mesh: 3 streams of 416x64
     in one block, (3,) int32 GOP state in different phases, 4 frames, each
-    stream equal to encode_frame_device of its frames; F, T, A and M 3
-    times a frame and P 6 times; the host waits for the card nowhere in a
-    frame, the GOP state given as a tensor and as ints."""
+    stream equal to encode_frame_device of its frames; the subsample, F, T,
+    A and M 3 times a frame and the glue and P 6 times; the host waits for
+    the card nowhere in a frame, the GOP state given as a tensor and as
+    ints."""
     b, w, h, nf = 3, 416, 64, 4
     kw = dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=262144)
     stacks = [_stacks(dev, w, h, nf, 90 + s) for s in range(b)]
@@ -1041,9 +1259,10 @@ def test_graph_me_pack_one_rank_nccl_batch_program(dev, tmp_path):
             with _no_sync():
                 got = enc(*planes, *prev_b, i_t, [k] * b)
             torch.cuda.synchronize()
-            assert _build.LAUNCHES == {"me_fused": 3, "transform": 3, "acsym": 3,
-                                       "pack_slots": 6, "merge_rows": 3, "me_luma": 0,
-                                       "chroma_pred": 0}, _build.LAUNCHES
+            assert _build.LAUNCHES == {"subsample": 3, "me_fused": 3, "transform": 3,
+                                       "glue": 6, "acsym": 3, "pack_slots": 6,
+                                       "merge_rows": 3, "me_luma": 0, "chroma_pred": 0}, \
+                _build.LAUNCHES
             for s in range(b):
                 want = M.encode_frame_device(*(t[k] for t in stacks[s]), *prev_s[s], i_f[s],
                                              k, **kw)

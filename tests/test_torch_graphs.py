@@ -141,20 +141,22 @@ def test_launch_ledger_counts_replays():
     _build.reset_launches()
     tally = {}
     with _build.tally_into(tally):
-        for name in ("me_fused", "transform", "acsym", "pack_slots", "merge_rows"):
+        for name in ("subsample", "me_fused", "transform", "glue", "acsym", "pack_slots",
+                     "merge_rows"):
             _build.count(name)
         _build.count("pack_slots")
         with pytest.raises(RuntimeError, match="nest"):
             with _build.tally_into({}):
                 pass
     assert sum(_build.LAUNCHES.values()) == 0
-    assert tally == {"me_fused": 1, "transform": 1, "acsym": 1, "pack_slots": 2,
-                     "merge_rows": 1}
+    assert tally == {"subsample": 1, "me_fused": 1, "transform": 1, "glue": 1, "acsym": 1,
+                     "pack_slots": 2, "merge_rows": 1}
     for _ in range(3):
         _build.add_launches(tally)
     _build.add_launches(tally, times=4)
-    assert _build.LAUNCHES == {"me_fused": 7, "transform": 7, "acsym": 7, "pack_slots": 14,
-                               "merge_rows": 7, "me_luma": 0, "chroma_pred": 0}
+    assert _build.LAUNCHES == {"subsample": 7, "me_fused": 7, "transform": 7, "glue": 7,
+                               "acsym": 7, "pack_slots": 14, "merge_rows": 7, "me_luma": 0,
+                               "chroma_pred": 0}
     _build.count("me_luma")
     assert _build.LAUNCHES["me_luma"] == 1
     _build.reset_launches()
