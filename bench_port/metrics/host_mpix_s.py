@@ -1,0 +1,7 @@
+"""Pixels of the frames whose payload reached the host in the window, over
+the window's seconds, in millions: frames from host memory through the
+public API."""
+
+
+def read(run, part=None):
+    return run.mpix_per_s()

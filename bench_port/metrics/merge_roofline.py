@@ -1,0 +1,6 @@
+"""The row merge and append's share of its roofline, in percent, over the traced
+frames (stages/merge.py counts its work; Run.roofline_share)."""
+
+
+def read(run, part=None):
+    return run.roofline_share("merge")

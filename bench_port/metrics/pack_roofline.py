@@ -1,0 +1,6 @@
+"""Slot-row packing's share of its roofline, in percent, over the traced
+frames (stages/pack.py counts its work; Run.roofline_share)."""
+
+
+def read(run, part=None):
+    return run.roofline_share("pack")

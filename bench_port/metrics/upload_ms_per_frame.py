@@ -1,0 +1,8 @@
+"""``upload_ms_per_frame.<traffic>``: device time of the host-to-device
+copies in the traced window, per frame traced, in milliseconds."""
+
+
+def read(run, part=None):
+    n = len(run.traced_frames)
+    t = sum(o.end - o.start for o in run.trace.ops if o.cat == "gpu_memcpy" and "HtoD" in o.name)
+    return 1e3 * t / n if n and t > 0 else None
