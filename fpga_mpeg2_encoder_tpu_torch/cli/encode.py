@@ -12,8 +12,11 @@ the encoder, writes the `.m2v` stream.  It runs on a CUDA card unless
 Multiple --input/--size/--out triples encode several sequences back-to-back
 through one encoder instance, exercising sequence restart like the reference's
 3-video run (SIM/tb_mpeg2encoder.v:150, README.md:655).  ``--stats`` prints a
-JSON line per sequence: the summary, each frame's bits and type, and the
-kernel launches of the sequence (zero on the CPU).
+JSON line per sequence: the summary (``fps`` and ``mpixels_per_s`` from the
+encoder's wall time, chunked or not), each frame's bits and type, the
+kernel launches of the sequence (zero on the CPU) and its counts of blocking
+device reads (``host_syncs``), overflow re-encodes (``overflow_retries``) and
+programs captured (``graph_captures``, zero on the CPU).
 """
 from __future__ import annotations
 
@@ -25,8 +28,10 @@ import time
 from ..config import EncoderConfig, SequenceConfig
 from ..models.encoder import Encoder, bound_caps
 from ..ops.kernels import _build
-from ..utils import yuv
+from ..utils import profiling, yuv
 from ..utils.logging import ProgressLogger
+
+STATS_COUNTERS = ("host_syncs", "overflow_retries", "graph_captures")
 
 
 def _parse_size(s: str):
@@ -89,6 +94,7 @@ def main(argv=None) -> int:
         log.info(f"encoding {src} ({w}x{h}, {n} frames) -> {dst}")
         t0 = time.perf_counter()
         _build.reset_launches()
+        profiling.COUNTS.clear()
         enc.start_sequence(SequenceConfig(w, h, args.pframes))
         if args.chunk > 1:
             buf = []
@@ -116,7 +122,8 @@ def main(argv=None) -> int:
                 "input": src, "out": dst, **stats.summary(),
                 "frame_bits": [fs.bits for fs in stats.frames],
                 "types": "".join("P" if fs.i_frame else "I" for fs in stats.frames),
-                "kernel_launches": dict(_build.LAUNCHES)}))
+                "kernel_launches": dict(_build.LAUNCHES),
+                **{k: profiling.COUNTS.get(k, 0) for k in STATS_COUNTERS}}))
     return 0
 
 

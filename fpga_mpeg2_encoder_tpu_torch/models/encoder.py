@@ -50,6 +50,7 @@ from ..ops.kernels import transform as k_transform
 from ..runtime import graphs
 from ..runtime.state import EncoderState
 from ..utils.logging import SequenceStats
+from ..utils.profiling import count, span
 
 DEFAULT_ROW_CAP = 2048       # words/slice budget (8 KB)
 DEFAULT_FRAME_CAP = 65536    # words/frame budget (256 KB)
@@ -146,6 +147,12 @@ def _copy_in(dst: torch.Tensor, src, name: str) -> None:
     dst.copy_(src)
 
 
+def _enqueued(dsts, srcs) -> int:
+    """How many of the copies or fills of ``srcs`` into ``dsts`` enqueue
+    work: all but those of a program's tensor onto itself."""
+    return sum(src is not dst for dst, src in zip(dsts, srcs))
+
+
 def _planes(dev, h: int, w: int, sub: int):
     """Zeroed uint8 planes: (H, W), then two of (H/sub, W/sub)."""
     return tuple(torch.zeros(shape, dtype=torch.uint8, device=dev)
@@ -162,15 +169,20 @@ class _FrameProgram:
         self.i_frame, self.frame_no = entropy.gop_scalar(0, dev), entropy.gop_scalar(0, dev)
         kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap)
         self.step = graphs.Step(lambda: encode_frame_core(
-            *self.frame, *self.prev, self.i_frame, self.frame_no, **kw), dev)
+            *self.frame, *self.prev, self.i_frame, self.frame_no, **kw), dev, "frame")
 
     def __call__(self, planes, prev, i_frame, frame_no):
-        for dst, src, name in zip(self.frame + self.prev, tuple(planes) + tuple(prev),
-                                  ("y444", "u444", "v444", "prev_y", "prev_u", "prev_v")):
-            _copy_in(dst, src, name)
-        entropy.gop_scalar(i_frame, self.i_frame.device, out=self.i_frame)
-        entropy.gop_scalar(frame_no, self.frame_no.device, out=self.frame_no)
-        return self.step()
+        with span("frame.feed"):
+            dsts, srcs = self.frame + self.prev, tuple(planes) + tuple(prev)
+            for dst, src, name in zip(dsts, srcs, ("y444", "u444", "v444", "prev_y", "prev_u",
+                                                   "prev_v")):
+                _copy_in(dst, src, name)
+            entropy.gop_scalar(i_frame, self.i_frame.device, out=self.i_frame)
+            entropy.gop_scalar(frame_no, self.frame_no.device, out=self.frame_no)
+            count("host_launches", _enqueued(dsts + (self.i_frame, self.frame_no),
+                                             srcs + (i_frame, frame_no))
+                  + self.step.launches_a_call)
+            return self.step()
 
 
 class _GopProgram:
@@ -198,7 +210,8 @@ class _GopProgram:
         self.frame_ifs = torch.zeros(frames_cap, dtype=torch.int32, device=dev)
         self.seq_cap, self.frames_cap = seq_cap, frames_cap
         self._kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap)
-        self.step = graphs.Step(self._step, dev)
+        self.step = graphs.Step(self._step, dev, "gop")
+        self._feed_launches = 3 + self.step.launches_a_call      # the planes, the replay
 
     def _step(self) -> None:
         carry = (self.prev, self.seq_words, self.seq_bits, self.overflow, self.i_frame,
@@ -216,22 +229,32 @@ class _GopProgram:
     def start(self, prev, i_frame0, frame_no0, pframes_count) -> None:
         """Set the carry for a new chunk: the reference planes, the GOP
         state, an empty sequence buffer and no overflow."""
-        for dst, src, name in zip(self.prev, prev, ("prev_y", "prev_u", "prev_v")):
-            _copy_in(dst, src, name)
-        for dst, src in ((self.i_frame, i_frame0), (self.frame_no, frame_no0),
-                         (self.pframes, pframes_count)):
-            entropy.gop_scalar(src, dst.device, out=dst)
-        for t in (self.seq_words, self.seq_bits, self.overflow, self.k):
-            t.zero_()
+        with span("gop.start"):
+            for dst, src, name in zip(self.prev, prev, ("prev_y", "prev_u", "prev_v")):
+                _copy_in(dst, src, name)
+            scalars = (self.i_frame, self.frame_no, self.pframes)
+            values = (i_frame0, frame_no0, pframes_count)
+            for dst, src in zip(scalars, values):
+                entropy.gop_scalar(src, dst.device, out=dst)
+            zeroed = (self.seq_words, self.seq_bits, self.overflow, self.k)
+            for t in zeroed:
+                t.zero_()
+            count("host_launches", _enqueued(self.prev + scalars, tuple(prev) + values)
+                  + len(zeroed))
 
     def feed(self, y444, u444, v444) -> None:
         """One frame through the step."""
-        for dst, src, name in zip(self.frame, (y444, u444, v444), ("y444", "u444", "v444")):
-            _copy_in(dst, src, name)
-        self.step()
+        with span("gop.feed"):
+            for dst, src, name in zip(self.frame, (y444, u444, v444),
+                                      ("y444", "u444", "v444")):
+                _copy_in(dst, src, name)
+            count("host_launches", self._feed_launches)
+            self.step()
 
     def result(self, n_frames: int):
-        ovf = self.overflow | (self.seq_bits > 32 * self.seq_cap)
+        with span("gop.result"):
+            ovf = self.overflow | (self.seq_bits > 32 * self.seq_cap)
+            count("host_launches", 2)
         return (*self.prev, self.seq_words, self.seq_bits, self.i_frame, self.frame_no, ovf,
                 self.frame_bits[:n_frames], self.frame_ifs[:n_frames])
 
@@ -245,7 +268,8 @@ def encode_frame_device(y444, u444, v444, prev_y, prev_u, prev_v, i_frame, frame
 
     On a card a captured graph of the step is replayed: the host enqueues the
     copies of the six planes and the two GOP scalars into the program's
-    inputs (8 launches) and the graph (1).  The outputs are the graph's
+    inputs (8 launches, fewer where an input is the program's own tensor)
+    and the graph (1).  The outputs are the graph's
     tensors, rewritten by the next call of a program of the same geometry,
     knobs and caps: clone what you keep.  On the CPU the step runs
     eagerly."""
@@ -272,7 +296,11 @@ def encode_gop_scan(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
     On a card one frame's step is a captured graph, replayed F times: per
     frame the host enqueues the copies of the frame's three planes into the
     step's inputs and the graph's launch (4 launches), and per chunk 12
-    more (the carry set, the overflow's last term).  The outputs are the
+    more (the carry set: 3 plane copies, 3 scalars, 4 zeroings; the
+    overflow's last term: 2), 7 where the recon planes, the GOP position and
+    the frame number passed in are a previous call's outputs, since a copy
+    of a tensor onto itself enqueues nothing.  ``utils/profiling`` counts
+    each as ``host_launches``.  The outputs are the
     program's tensors, rewritten by the next call of a program of the same
     geometry, knobs and caps: clone what you keep.  On the CPU the step
     runs eagerly."""
@@ -454,61 +482,95 @@ class Encoder:
         """Feed one YUV 4:4:4 frame (uint8 (H, W) planes)."""
         t_start = time.perf_counter()
         seq = self._require_seq()
-        self._check_frame_shape((y, u, v), seq)
-        if self._prev is None:
-            self._prev = self._zero_prev()
-        planes = tuple(self._upload(p) for p in (y, u, v))
-        args = (*planes, *self._prev, self._i_frame, self._frame_no)
-        ry, ru, rv, fw, fb, ovf = encode_frame_device(
-            *args, **self._kw(), row_cap=self.row_cap, frame_cap=self.frame_cap)
-        if bool(ovf):
-            # rare: the frame exceeded the caps; encode it again at the bounds
-            row_cap, frame_cap = bound_caps(seq.width, seq.height)
-            ry, ru, rv, fw, fb, ovf = encode_frame_device(
-                *args, **self._kw(), row_cap=row_cap, frame_cap=frame_cap)
-            if bool(ovf):
-                raise RuntimeError("frame exceeded the analytic worst-case buffer bound")
-        nbits = int(fb)
-        payload = _download_payload(fw, nbits)
-        # the program's outputs are rewritten by its next call
-        self._prev = (ry.clone(), ru.clone(), rv.clone())
-        self._payload.append(payload)
-        self.stats.add(index=self._frame_no, i_frame=self._i_frame, bits=nbits,
-                       wall_s=time.perf_counter() - t_start)
-        self._i_frame = 0 if self._i_frame >= seq.pframes_count else self._i_frame + 1
-        self._frame_no += 1
+        first = self._frame_no
+        with span("push_frame", first):
+            self._check_frame_shape((y, u, v), seq)
+            if self._prev is None:
+                self._prev = self._zero_prev()
+            with span("push_frame.upload", first):
+                planes = tuple(self._upload(p) for p in (y, u, v))
+            args = (*planes, *self._prev, self._i_frame, self._frame_no)
+            caps = dict(row_cap=self.row_cap, frame_cap=self.frame_cap)
+            for retry in (False, True):
+                with span("push_frame.program", first):
+                    ry, ru, rv, fw, fb, ovf = encode_frame_device(*args, **self._kw(), **caps)
+                with span("push_frame.sync", first):
+                    count("host_syncs")
+                    overflowed = bool(ovf)
+                    if not overflowed:
+                        count("host_syncs")
+                        nbits = int(fb)
+                if not overflowed:
+                    break
+                if retry:
+                    raise RuntimeError("frame exceeded the analytic worst-case buffer bound")
+                # rare: the frame exceeded the caps; encode it again at the bounds
+                count("overflow_retries")
+                caps = dict(zip(("row_cap", "frame_cap"), bound_caps(seq.width, seq.height)))
+            with span("push_frame.download", first):
+                count("host_syncs")
+                payload = _download_payload(fw, nbits)
+            with span("push_frame.carry", first):
+                # the program's outputs are rewritten by its next call
+                self._prev = (ry.clone(), ru.clone(), rv.clone())
+                self._payload.append(payload)
+                self.stats.add(index=self._frame_no, i_frame=self._i_frame, bits=nbits,
+                               wall_s=time.perf_counter() - t_start)
+                self._i_frame = 0 if self._i_frame >= seq.pframes_count else self._i_frame + 1
+                self._frame_no += 1
 
     def push_chunk(self, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]]
                    ) -> None:
-        """Feed several frames at once; encoded on the device in one pass."""
+        """Feed several frames at once; encoded on the device in one pass.
+        Each frame's ``stats`` entry holds its share of the chunk's wall
+        time."""
+        t_start = time.perf_counter()
         seq = self._require_seq()
-        for f in frames:
-            self._check_frame_shape(f, seq)
-        if self._prev is None:
-            self._prev = self._zero_prev()
-        stacks = [self._upload(np.stack([np.asarray(f[i]) for f in frames]))
-                  for i in range(3)]
-        args = (*stacks, *self._prev, self._i_frame, self._frame_no, seq.pframes_count)
-        ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gop_scan(
-            *args, **self._kw(), row_cap=self.row_cap, frame_cap=self.frame_cap,
-            seq_cap=self.frame_cap * max(1, len(frames) // 4))
-        if bool(ovf):
-            # rare: some frame or the chunk exceeded the caps; encode the
-            # chunk again at the bounds
-            row_cap, frame_cap = bound_caps(seq.width, seq.height)
-            ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gop_scan(
-                *args, **self._kw(), row_cap=row_cap, frame_cap=frame_cap,
-                seq_cap=frame_cap * len(frames))
-            if bool(ovf):
-                raise RuntimeError("chunk exceeded the analytic worst-case buffer bound")
-        # the program's outputs are rewritten by its next call
-        self._prev = (ry.clone(), ru.clone(), rv.clone())
-        self._payload.append(_download_payload(sw, int(sb)))
-        for k, (bits, i_frame) in enumerate(zip(fbits.tolist(), fifs.tolist())):
-            self.stats.add(index=self._frame_no + k, i_frame=i_frame, bits=bits,
-                           wall_s=0.0)
-        self._i_frame = int(i_f)
-        self._frame_no = int(fno)
+        first = self._frame_no
+        with span("push_chunk", first):
+            for f in frames:
+                self._check_frame_shape(f, seq)
+            if self._prev is None:
+                self._prev = self._zero_prev()
+            with span("push_chunk.stack", first):
+                host = [np.stack([np.asarray(f[i]) for f in frames]) for i in range(3)]
+            with span("push_chunk.upload", first):
+                stacks = [self._upload(h) for h in host]
+            args = (*stacks, *self._prev, self._i_frame, self._frame_no, seq.pframes_count)
+            caps = dict(row_cap=self.row_cap, frame_cap=self.frame_cap,
+                        seq_cap=self.frame_cap * max(1, len(frames) // 4))
+            for retry in (False, True):
+                with span("push_chunk.program", first):
+                    ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gop_scan(
+                        *args, **self._kw(), **caps)
+                with span("push_chunk.sync", first):
+                    count("host_syncs")
+                    overflowed = bool(ovf)
+                    if not overflowed:
+                        count("host_syncs", 5)
+                        nbits, bits, i_frames = int(sb), fbits.tolist(), fifs.tolist()
+                        i_next, fno_next = int(i_f), int(fno)
+                if not overflowed:
+                    break
+                if retry:
+                    raise RuntimeError("chunk exceeded the analytic worst-case buffer bound")
+                # rare: some frame or the chunk exceeded the caps; encode the
+                # chunk again at the bounds
+                count("overflow_retries")
+                row_cap, frame_cap = bound_caps(seq.width, seq.height)
+                caps = dict(row_cap=row_cap, frame_cap=frame_cap,
+                            seq_cap=frame_cap * len(frames))
+            with span("push_chunk.download", first):
+                count("host_syncs")
+                payload = _download_payload(sw, nbits)
+            with span("push_chunk.carry", first):
+                # the program's outputs are rewritten by its next call
+                self._prev = (ry.clone(), ru.clone(), rv.clone())
+                self._payload.append(payload)
+                wall_s = (time.perf_counter() - t_start) / len(frames)
+                for k, (b, i_frame) in enumerate(zip(bits, i_frames)):
+                    self.stats.add(index=first + k, i_frame=i_frame, bits=b, wall_s=wall_s)
+                self._i_frame, self._frame_no = i_next, fno_next
 
     def finish(self, stop_mode: str = "clean") -> bytes:
         """End the sequence (i_sequence_stop semantics) and return the stream.

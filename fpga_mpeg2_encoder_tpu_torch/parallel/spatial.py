@@ -150,7 +150,7 @@ class LocalProgram:
         self.first_row = first_row
         self._local_step = make_local_step(nby, yr=yr, ur=ur, q_level=q_level,
                                            row_cap=row_cap)
-        self.step = graphs.Step(self._run, dev)
+        self.step = graphs.Step(self._run, dev, "shard_local")
 
     def _run(self):
         outs = [self._local_step(*(p[b] for p in self.frame), *(p[b] for p in self.prev),
@@ -188,7 +188,7 @@ class TailProgram:
         self.flags, self.i_frame, self.frame_no = (
             torch.zeros(streams, dtype=torch.int32, device=dev) for _ in range(3))
         self._caps = dict(row_cap=row_cap, frame_cap=frame_cap)
-        self.step = graphs.Step(self._run, dev)
+        self.step = graphs.Step(self._run, dev, "shard_tail")
 
     def _run(self):
         words = self.words.view(*self.shape, -1)

@@ -14,7 +14,11 @@ Replays go to the caller's current stream, one after another.
 
 The kernels' launches are counted into a tally while the graph is captured
 (``ops/kernels/_build.tally_into``); each replay adds the tally to
-``_build.LAUNCHES``.  The warm-up's launches are not counted.
+``_build.LAUNCHES``.  The warm-up's launches are not counted.  The
+capture is the span ``capture.<kind>`` (``utils/profiling``) and counts one
+``graph_captures``; a replay is the span ``replay.<kind>``, one host launch
+that the program calling it counts with its own.  The kind names the
+program: its cache key's first element.
 
 On the CPU there is nothing to capture: each call runs the step eagerly.
 A capture that fails raises; nothing falls back to the eager step on a card.
@@ -30,6 +34,7 @@ from typing import Callable, Dict, Hashable
 import torch
 
 from ..ops.kernels import _build
+from ..utils.profiling import count, span
 
 MAX_PROGRAMS = 16        # programs kept per process; the least recently used goes
 
@@ -53,19 +58,25 @@ class Step:
     eager warm-up, or, on the CPU, called as it is.  ``launches`` is the
     capture's tally of kernel launches, added to ``_build.LAUNCHES`` at each
     replay; ``outputs`` is what ``fn`` returned when it was captured (the
-    graph's tensors, rewritten by each replay)."""
+    graph's tensors, rewritten by each replay).  ``kind`` names the spans
+    of the capture and the replays; ``launches_a_call`` is what a call
+    enqueues from the host: 1 (the replay) on a card, 0 on the CPU."""
 
-    def __init__(self, fn: Callable[[], object], device):
+    def __init__(self, fn: Callable[[], object], device, kind: str = "step"):
         self.device = torch.device(device)
         self._fn = fn
+        self._capture_span, self._replay_span = f"capture.{kind}", f"replay.{kind}"
         self._graph = None
         self.launches: Dict[str, int] = {}
         self.outputs = None
+        self.launches_a_call = 0
         if self.device.type == "cuda":
             self._capture()
+            self.launches_a_call = 1
 
     def _capture(self) -> None:
-        with torch.cuda.device(self.device):
+        count("graph_captures")
+        with span(self._capture_span), torch.cuda.device(self.device):
             stream = _side_stream(self.device)
             current = torch.cuda.current_stream(self.device)
             stream.wait_stream(current)
@@ -90,7 +101,8 @@ class Step:
         if self._graph is None:
             self.outputs = self._fn()
         else:
-            self._graph.replay()
+            with span(self._replay_span):
+                self._graph.replay()
             _build.add_launches(self.launches)
         return self.outputs
 

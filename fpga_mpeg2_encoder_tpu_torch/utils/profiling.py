@@ -1,61 +1,134 @@
-"""Stage profiling for the encoder pipeline.
+"""Tracing for the port: spans and counters where the host does the work,
+on torch.profiler's clock, and the Chrome-trace exporter.
 
-``StageTimer`` accumulates wall time per named stage.  Work on a card is
-asynchronous, so on a CUDA device it synchronises the device at each stage's
-start and end: a stage's time is then the time of its own device work, and
-the synchronisation costs what the pipeline would otherwise overlap.
-``trace_to`` records a torch.profiler trace (host calls and, on a card, the
-kernels) and writes it as a Chrome trace, viewable in Perfetto.
+Tracing is on while a ``torch.profiler`` records (``trace_to`` below, or any
+profiler a caller starts); there is no other switch.
+
+* ``span(name, arg)`` is a context manager.  While a profiler records it is
+  ``torch.profiler.record_function(name, arg)``: its start, end and parent
+  (by nesting) land in the profiler's trace beside the kernels, and its
+  host seconds and calls go into the tally under ``name``.  Otherwise it is
+  one shared null context, after a single check of the profiler's state:
+  on the per-frame path a span costs that check and two empty calls.
+* ``count(name, n)`` adds ``n`` to the process totals ``COUNTS`` and, while
+  a profiler records, to the tally.
+* ``traced()`` is the tally since the last ``reset()``; once the profiler
+  stops, nothing more goes into it.
+
+Neither a span nor a counter reads the device, and neither may go inside a
+function that a CUDA graph captures: it would run at the capture only.
+
+The spans (``arg``: the sequence number of the call's first frame):
+
+* ``push_chunk`` (``Encoder.push_chunk``), its children ``.stack`` (the
+  planes' ``np.stack``), ``.upload``, ``.program`` (``encode_gop_scan``, an
+  overflow retry included), ``.sync`` (the overflow flag, the bit count, the
+  frames' bits and types, the GOP state), ``.download`` (the payload) and
+  ``.carry`` (the recon clones, the stats);
+* ``push_frame``, with ``.upload``, ``.program``, ``.sync``, ``.download``
+  and ``.carry`` defined the same way;
+* ``gop.start``, ``gop.feed`` (a frame's plane copies and replay) and
+  ``gop.result`` (``encode_gop_scan``'s program), ``frame.feed``
+  (``encode_frame_device``'s);
+* ``replay.<kind>`` and ``capture.<kind>`` (``runtime/graphs.Step``; the
+  kind is the program cache key's first element: ``gop``, ``frame``,
+  ``shard_local``, ``shard_tail``).
+
+The counters: ``host_syncs`` (each blocking device read of ``push_chunk``
+and ``push_frame``), ``host_launches`` (each host-side enqueue of the gop
+and frame programs: copies and fills into their tensors, the result's ops,
+the graph's replay), ``overflow_retries`` (each
+re-encode at ``models/encoder.bound_caps``) and ``graph_captures``.
+
+The benchmark's per-layer metrics read the tally (``bench_port/metrics``);
+the command line's ``--stats`` prints ``COUNTS``.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+COUNTS: Dict[str, int] = {}          # process totals, whether or not a profiler records
+_spans: Dict[str, Tuple[int, float]] = {}     # the tally
+_counts: Dict[str, int] = {}
 
 
-class StageTimer:
-    """Accumulates wall time per named stage on ``device`` (a CUDA device
-    is synchronised at stage boundaries; None or a CPU device is not)."""
+class _NullSpan:
+    """The span while no profiler records: a null context with no state
+    (shared by every caller; cheaper to enter than contextlib's)."""
 
-    def __init__(self, device: Optional[torch.device] = None) -> None:
-        self.device = None if device is None else torch.device(device)
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
+    __slots__ = ()
 
-    def _sync(self) -> None:
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def __enter__(self) -> None:
+        return None
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+    def __exit__(self, *exc) -> None:
+        return None
 
-    def report(self) -> List[str]:
-        out = []
-        for name, tot in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            out.append(f"{name:24s} {tot * 1000:9.2f} ms total"
-                       f"  ({tot / n * 1000:8.2f} ms x {n})")
-        return out
+
+_NULL = _NullSpan()
+
+
+class _Span:
+    """record_function(name, arg) that adds its host seconds to the tally."""
+
+    __slots__ = ("_name", "_record", "_t0")
+
+    def __init__(self, name: str, arg) -> None:
+        self._name = name
+        self._record = torch.profiler.record_function(name, None if arg is None else str(arg))
+
+    def __enter__(self) -> None:
+        self._record.__enter__()
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        dt = time.perf_counter() - self._t0
+        self._record.__exit__(*exc)
+        if _autograd_profiler._is_profiler_enabled:
+            calls, seconds = _spans.get(self._name, (0, 0.0))
+            _spans[self._name] = (calls + 1, seconds + dt)
+
+
+def span(name: str, arg: Optional[int] = None):
+    """A span ``name`` around the enclosed host work (see the module's
+    docstring); the shared null context while no profiler records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Span(name, arg)
+
+
+def count(name: str, n: int = 1) -> None:
+    """``n`` more events ``name``: into ``COUNTS``, and into the tally while
+    a profiler records."""
+    COUNTS[name] = COUNTS.get(name, 0) + n
+    if _autograd_profiler._is_profiler_enabled:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def traced() -> Tuple[Dict[str, Tuple[int, float]], Dict[str, int]]:
+    """What was recorded while a profiler recorded, since the last
+    ``reset()``: ({span: (calls, host seconds)}, {counter: n})."""
+    return dict(_spans), dict(_counts)
+
+
+def reset() -> None:
+    """Clear the tally (not ``COUNTS``)."""
+    _spans.clear()
+    _counts.clear()
 
 
 @contextlib.contextmanager
 def trace_to(path: str):
     """Context manager: trace the enclosed work with torch.profiler (the
     CUDA activity too when torch sees a card) and write it to ``path`` as a
-    Chrome trace.  Yields the profiler, whose ``key_averages()`` sum the
-    time by kernel."""
+    Chrome trace, viewable in Perfetto; the spans above are in it as
+    ``user_annotation`` events.  Yields the profiler, whose
+    ``key_averages()`` sum the time by kernel and span."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]

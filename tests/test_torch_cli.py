@@ -33,7 +33,7 @@ from fpga_mpeg2_encoder_tpu_torch.golden import validator as V
 from fpga_mpeg2_encoder_tpu_torch.models import encoder as M
 from fpga_mpeg2_encoder_tpu_torch.runtime.invariants import verify_recon_chain
 from fpga_mpeg2_encoder_tpu_torch.utils import yuv
-from fpga_mpeg2_encoder_tpu_torch.utils.profiling import StageTimer, trace_to
+from fpga_mpeg2_encoder_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = [(64, 64), (96, 64), (80, 80)]
@@ -89,7 +89,10 @@ def test_cli_three_sequences_back_to_back(clips):
 def test_cli_stats_equal_between_chunk_1_and_chunk_4(clips):
     """Per-frame stats (bits and frame types) and the streams are the same
     whether the CLI streams frames or pushes chunks of 4 (5 frames: a chunk
-    of 4 and one of 1); on the CPU no kernel is launched."""
+    of 4 and one of 1); both report a frame rate from the encoder's wall
+    time and count the blocking device reads (3 a frame streamed, 7 a
+    chunk); on the CPU no kernel is launched, no graph captured, and no
+    overflow retried at the CLI's caps."""
     d, runs = clips
     for i in range(len(SIZES)):
         a, b = runs[1][1][i], runs[4][1][i]
@@ -97,6 +100,11 @@ def test_cli_stats_equal_between_chunk_1_and_chunk_4(clips):
             assert a[key] == b[key], (i, key)
         assert a["types"] == "IPIPI" and a["frames"] == 5
         assert not any(a["kernel_launches"].values())
+        for run, syncs in ((a, 3 * 5), (b, 7 * 2)):
+            assert run["fps"] is not None and run["mpixels_per_s"] is not None
+            assert run["wall_s"] > 0
+            assert (run["host_syncs"], run["overflow_retries"], run["graph_captures"]) \
+                == (syncs, 0, 0)
         assert (d / f"out{i}_c1.m2v").read_bytes() == (d / f"out{i}_c4.m2v").read_bytes()
 
 
@@ -184,15 +192,22 @@ def test_yuv_files_match_reference(tmp_path):
 
 
 def test_stage_timer_and_trace(tmp_path):
-    timer = StageTimer(torch.device("cpu"))
-    for _ in range(2):
-        with timer.stage("add"):
-            torch.ones(64).add_(1)
-    assert timer.counts == {"add": 2} and timer.totals["add"] > 0
-    assert timer.report()[0].startswith("add")
+    """trace_to writes the profiler's Chrome trace with the spans in it;
+    a span records into the tally only while a profiler records."""
+    profiling.reset()
+    with profiling.span("add", 7):
+        torch.ones(64).add_(1)
+    assert profiling.traced() == ({}, {})
     path = str(tmp_path / "trace.json")
-    with trace_to(path) as prof:
-        torch.ones(64).mul_(3)
+    with profiling.trace_to(path) as prof:
+        for _ in range(2):
+            with profiling.span("add", 7):
+                torch.ones(64).mul_(3)
+    calls, seconds = profiling.traced()[0]["add"]
+    assert calls == 2 and seconds > 0
     assert any("mul" in e.key for e in prof.key_averages())
     with open(path) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    assert [e["cat"] for e in events if e.get("name") == "add"] == ["user_annotation"] * 2
+    profiling.reset()
+    assert profiling.traced() == ({}, {})
