@@ -15,8 +15,10 @@ through one encoder instance, exercising sequence restart like the reference's
 JSON line per sequence: the summary (``fps`` and ``mpixels_per_s`` from the
 encoder's wall time, chunked or not), each frame's bits and type, the
 kernel launches of the sequence (zero on the CPU) and its counts of blocking
-device reads (``host_syncs``), overflow re-encodes (``overflow_retries``) and
-programs captured (``graph_captures``, zero on the CPU).
+device reads (``host_syncs``), overflow re-encodes (``overflow_retries``),
+programs captured (``graph_captures``, zero on the CPU), chunked frames
+copied up through page-locked slots (``staged_frames``, zero on the CPU) and
+waits for a slot's copy to end (``staging_waits``).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from ..ops.kernels import _build
 from ..utils import profiling, yuv
 from ..utils.logging import ProgressLogger
 
-STATS_COUNTERS = ("host_syncs", "overflow_retries", "graph_captures")
+STATS_COUNTERS = ("host_syncs", "overflow_retries", "graph_captures", "staged_frames",
+                  "staging_waits")
 
 
 def _parse_size(s: str):

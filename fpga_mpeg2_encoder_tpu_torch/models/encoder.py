@@ -35,6 +35,7 @@ the bytes.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -54,6 +55,7 @@ from ..utils.profiling import count, span
 
 DEFAULT_ROW_CAP = 2048       # words/slice budget (8 KB)
 DEFAULT_FRAME_CAP = 65536    # words/frame budget (256 KB)
+STAGING_SLOTS = 6            # page-locked frame slots of push_chunk's ring on a card
 
 
 def symbolize_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
@@ -346,6 +348,86 @@ def _download_payload(words: torch.Tensor, nbits: int) -> bytes:
     return words_to_bytes(words[: (nbits + 31) // 32].cpu().numpy(), nbits)
 
 
+def _host_tensor(plane) -> torch.Tensor:
+    """``plane`` as a uint8 CPU tensor over the caller's memory, to be read
+    by a copy: another dtype is converted, and negative strides, which torch
+    cannot view, are copied first.  A read-only array (the JAX package hands
+    them out) is taken as it is, since nothing writes through the view."""
+    a = np.asarray(plane, dtype=np.uint8)
+    if min(a.strides, default=0) < 0:
+        a = np.ascontiguousarray(a)
+    if a.flags.writeable:
+        return torch.from_numpy(a)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)    # torch's warning on read-only arrays
+        return torch.from_numpy(a)
+
+
+class _Staging:
+    """Encoder.push_chunk's transfers on a card, through page-locked host
+    memory allocated once for a geometry and reused by every chunk.
+
+    Frames in: a ring of STAGING_SLOTS frame slots.  The host's cores copy
+    frame k's three planes into slot k mod STAGING_SLOTS (torch's parallel
+    CPU copy), then the slot's copy to index k of a device stack is
+    enqueued without blocking, so the DMA of frame k runs while the host
+    copies frame k + 1.  A slot is written again only once the DMA out of it
+    has ended: an event recorded after each slot's DMA, waited on (counted
+    as ``staging_waits``) where it has not yet passed.  The device stack,
+    (frames, 3, H, W), grows to the longest chunk and is kept; its DMAs and
+    the program that reads it go to the same stream, in that order.
+
+    Payload out: the words are copied into a page-locked int64 buffer that
+    grows, to a power of two, only when a payload outgrows it.
+
+    On the CPU (the tests of the ring's bookkeeping) the slots and the
+    buffer are ordinary memory and each copy ends before the next starts:
+    nothing is waited on."""
+
+    def __init__(self, dev: torch.device, h: int, w: int):
+        pin = dev.type == "cuda"
+        self.dev, self.shape, self._pin = dev, (h, w), pin
+        self.slots = torch.empty((STAGING_SLOTS, 3, h, w), dtype=torch.uint8, pin_memory=pin)
+        self._copied = [torch.cuda.Event() if pin else None for _ in range(STAGING_SLOTS)]
+        self.stack = torch.empty((0, 3, h, w), dtype=torch.uint8, device=dev)
+        self.words = torch.empty(0, dtype=torch.int64, pin_memory=pin)
+
+    def upload(self, frames, first: int):
+        """The chunk's frames (``(y, u, v)`` host planes of the staging's
+        geometry) copied to the device: three (F, H, W) views of the device
+        stack, Y, U and V.  The caller's arrays are only read, and are free
+        to change once this returns."""
+        n = len(frames)
+        if len(self.stack) < n:
+            self.stack = torch.empty((n, 3, *self.shape), dtype=torch.uint8, device=self.dev)
+        stream = torch.cuda.current_stream(self.dev) if self._pin else None
+        for k, frame in enumerate(frames):
+            slot, copied = self.slots[k % STAGING_SLOTS], self._copied[k % STAGING_SLOTS]
+            with span("push_chunk.upload", first):
+                if copied is not None and not copied.query():
+                    count("staging_waits")
+                    copied.synchronize()
+            with span("push_chunk.stack", first):
+                for dst, plane in zip(slot, frame):
+                    dst.copy_(_host_tensor(plane))
+            with span("push_chunk.upload", first):
+                self.stack[k].copy_(slot, non_blocking=True)
+                if copied is not None:
+                    copied.record(stream)
+        count("staged_frames", n)
+        return tuple(self.stack[:n, i] for i in range(3))
+
+    def download(self, words: torch.Tensor, nbits: int) -> bytes:
+        """The payload's ``nbits`` bits of ``words`` (the device's int64
+        words), through the page-locked buffer."""
+        n = (nbits + 31) // 32
+        if len(self.words) < n:
+            self.words = torch.empty(1 << (n - 1).bit_length(), dtype=torch.int64,
+                                     pin_memory=self._pin)
+        self.words[:n].copy_(words[:n])
+        return words_to_bytes(self.words[:n].numpy(), nbits)
+
+
 class Encoder:
     """MPEG-2 encoder on one torch device.
 
@@ -358,7 +440,8 @@ class Encoder:
       downloaded per frame;
     * chunked (``encode`` with ``chunk_frames > 1``, or ``push_chunk``): frames
       staged on the device and encoded in one pass, with one payload download
-      per chunk - the high-throughput path.
+      per chunk - the high-throughput path; on a card both transfers go
+      through page-locked buffers the encoder keeps.
     Both go through the compiled programs (``encode_frame_device``,
     ``encode_gop_scan``), the overflow retry too, and keep clones of their
     outputs; the GOP position and the frame number stay host ints here.
@@ -374,6 +457,7 @@ class Encoder:
         self.config = config
         self.row_cap = row_cap
         self.frame_cap = frame_cap
+        self._staging = None
         self._seq = None
         self._reset_sequence_state()
 
@@ -443,6 +527,13 @@ class Encoder:
             self._prev = tuple(self._upload(p) for p in
                                (state.recon_y, state.recon_u, state.recon_v))
         self.stats = SequenceStats(width=state.width, height=state.height)
+
+    def _staging_for(self, seq: SequenceConfig) -> _Staging:
+        """push_chunk's page-locked buffers, made at the first chunk of a
+        geometry and kept while the geometry stays."""
+        if self._staging is None or self._staging.shape != (seq.height, seq.width):
+            self._staging = _Staging(self.device, seq.height, seq.width)
+        return self._staging
 
     def _kw(self):
         return dict(yr=self.config.yr, ur=self.config.ur, q_level=self.config.q_level)
@@ -523,19 +614,29 @@ class Encoder:
                    ) -> None:
         """Feed several frames at once; encoded on the device in one pass.
         Each frame's ``stats`` entry holds its share of the chunk's wall
-        time."""
+        time.  On a card the frames go up, and the payload comes back,
+        through the encoder's page-locked buffers (``_Staging``); the
+        frames' arrays are only read, and are the caller's again once this
+        returns."""
         t_start = time.perf_counter()
         seq = self._require_seq()
         first = self._frame_no
+        if not len(frames):
+            raise ValueError("push_chunk needs at least one frame")
         with span("push_chunk", first):
             for f in frames:
                 self._check_frame_shape(f, seq)
             if self._prev is None:
                 self._prev = self._zero_prev()
-            with span("push_chunk.stack", first):
-                host = [np.stack([np.asarray(f[i]) for f in frames]) for i in range(3)]
-            with span("push_chunk.upload", first):
-                stacks = [self._upload(h) for h in host]
+            if self.device.type == "cuda":
+                staging = self._staging_for(seq)
+                stacks = staging.upload(frames, first)
+            else:
+                staging = None
+                with span("push_chunk.stack", first):
+                    host = [np.stack([np.asarray(f[i]) for f in frames]) for i in range(3)]
+                with span("push_chunk.upload", first):
+                    stacks = [self._upload(h) for h in host]
             args = (*stacks, *self._prev, self._i_frame, self._frame_no, seq.pframes_count)
             caps = dict(row_cap=self.row_cap, frame_cap=self.frame_cap,
                         seq_cap=self.frame_cap * max(1, len(frames) // 4))
@@ -562,7 +663,8 @@ class Encoder:
                             seq_cap=frame_cap * len(frames))
             with span("push_chunk.download", first):
                 count("host_syncs")
-                payload = _download_payload(sw, nbits)
+                payload = (_download_payload(sw, nbits) if staging is None
+                           else staging.download(sw, nbits))
             with span("push_chunk.carry", first):
                 # the program's outputs are rewritten by its next call
                 self._prev = (ry.clone(), ru.clone(), rv.clone())

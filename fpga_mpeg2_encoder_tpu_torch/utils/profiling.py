@@ -20,11 +20,16 @@ function that a CUDA graph captures: it would run at the capture only.
 
 The spans (``arg``: the sequence number of the call's first frame):
 
-* ``push_chunk`` (``Encoder.push_chunk``), its children ``.stack`` (the
-  planes' ``np.stack``), ``.upload``, ``.program`` (``encode_gop_scan``, an
-  overflow retry included), ``.sync`` (the overflow flag, the bit count, the
-  frames' bits and types, the GOP state), ``.download`` (the payload) and
-  ``.carry`` (the recon clones, the stats);
+* ``push_chunk`` (``Encoder.push_chunk``), its children ``.stack`` and
+  ``.upload``, ``.program`` (``encode_gop_scan``, an overflow retry
+  included), ``.sync`` (the overflow flag, the bit count, the frames' bits
+  and types, the GOP state), ``.download`` (the payload, its conversion to
+  bytes included) and ``.carry`` (the recon clones, the stats).  On a card
+  ``.stack`` is a frame's host copy into a page-locked slot, once a frame,
+  and ``.upload``, twice a frame, the wait for that slot (where its last
+  copy to the device has not ended) before it, and the enqueue of the
+  slot's copy to the device after it; on the CPU ``.stack`` is the planes'
+  ``np.stack`` and ``.upload`` their conversion to tensors, once a chunk;
 * ``push_frame``, with ``.upload``, ``.program``, ``.sync``, ``.download``
   and ``.carry`` defined the same way;
 * ``gop.start``, ``gop.feed`` (a frame's plane copies and replay) and
@@ -38,7 +43,10 @@ The counters: ``host_syncs`` (each blocking device read of ``push_chunk``
 and ``push_frame``), ``host_launches`` (each host-side enqueue of the gop
 and frame programs: copies and fills into their tensors, the result's ops,
 the graph's replay), ``overflow_retries`` (each
-re-encode at ``models/encoder.bound_caps``) and ``graph_captures``.
+re-encode at ``models/encoder.bound_caps``), ``graph_captures``,
+``staged_frames`` (each frame ``push_chunk`` copies up through a page-locked
+slot) and ``staging_waits`` (each time the host waits for a slot's copy to
+the device to end before writing the slot again).
 
 The benchmark's per-layer metrics read the tally (``bench_port/metrics``);
 the command line's ``--stats`` prints ``COUNTS``.

@@ -25,6 +25,8 @@ torch.set_num_threads(1)
 
 from fpga_mpeg2_encoder_tpu_torch import Encoder, EncoderConfig, SequenceConfig
 from fpga_mpeg2_encoder_tpu_torch.core import tables
+from fpga_mpeg2_encoder_tpu_torch.core.bitstream import (
+    BitWriter, SEQUENCE_END_CHUNKS, sequence_header_chunks)
 from fpga_mpeg2_encoder_tpu_torch.golden import encoder as G
 from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
@@ -41,6 +43,7 @@ from fpga_mpeg2_encoder_tpu_torch.parallel import spatial as S
 from fpga_mpeg2_encoder_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
 from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import band_with_halo, frame_tail, make_local_step
 from fpga_mpeg2_encoder_tpu_torch.runtime import graphs
+from fpga_mpeg2_encoder_tpu_torch.utils import profiling
 from fpga_mpeg2_encoder_tpu_torch.utils.testdata import (
     GOLDEN_MATRIX, chroma_maps, random_sequence, video)
 
@@ -829,6 +832,120 @@ def test_encoder_on_card_2048_wide_equals_cpu(dev, vl, q, chunk):
     assert all(_build.LAUNCHES[k] >= 2 for k in MAIN_PATH), _build.LAUNCHES
     want = Encoder(cfg, device="cpu").encode(frames, 2048, 64, 23, chunk_frames=chunk)
     assert got == want
+
+
+# ---- push_chunk's page-locked staging (models/encoder.py::_Staging) ---------
+
+RING = M.STAGING_SLOTS
+
+
+def _core_stream(dev, cfg, frames, w, h, pframes, chunk):
+    """The stream of ``frames`` from the eager encode_gop_scan_core on
+    ``dev``, ``chunk`` frames a call at the bounds' caps, each chunk
+    uploaded from np.stack: the reference for push_chunk's staging."""
+    row_cap, frame_cap = M.bound_caps(w, h)
+    kw = dict(yr=cfg.yr, ur=cfg.ur, q_level=cfg.q_level, row_cap=row_cap,
+              frame_cap=frame_cap, seq_cap=frame_cap * chunk)
+    bw = BitWriter()
+    bw.put_chunks(sequence_header_chunks(w, h))
+    parts = [bw.to_bytes_aligned()]
+    prev = (torch.zeros((h, w), dtype=torch.uint8, device=dev),
+            *(torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev),) * 2)
+    i_f = fno = 0
+    for a in range(0, len(frames), chunk):
+        stacks = [torch.as_tensor(np.stack([f[i] for f in frames[a:a + chunk]]), device=dev)
+                  for i in range(3)]
+        out = M.encode_gop_scan_core(*stacks, *prev, i_f, fno, pframes, **kw)
+        assert not bool(out[7])
+        prev, nbits, i_f, fno = out[:3], int(out[4]), int(out[5]), int(out[6])
+        parts.append(M.words_to_bytes(out[3][:(nbits + 31) // 32].cpu().numpy(), nbits))
+    bw = BitWriter()
+    bw.put_chunks(SEQUENCE_END_CHUNKS)
+    data = b"".join(parts) + bw.to_bytes_aligned()
+    return data + b"\x00" * ((len(data) // 32 + 1) * 32 - len(data))
+
+
+@pytest.mark.parametrize("held", [False, True])
+def test_push_chunk_staged_1920x1152_equals_core(dev, held):
+    """Two 40-frame chunks of 1920x1152 through push_chunk (the encoder's
+    page-locked ring; caps at the bounds, as the command line sets them)
+    give the eager encode_gop_scan_core's stream, every frame staged once.
+    Held: the stream is kept busy (torch.cuda._sleep, about 0.1 s) before
+    each chunk, so the ring's copies queue behind it and the host has to
+    wait for its slots; the bytes do not change.  The second chunk's planes
+    are read-only, as the JAX package hands them out."""
+    w, h = 1920, 1152
+    cfg = EncoderConfig(xl=7, yl=7, vector_level=3, q_level=2)
+    frames = video(11, w, h, 80)
+    for f in frames[40:]:
+        for p in f:
+            p.setflags(write=False)
+    enc = Encoder(cfg, *M.bound_caps(w, h), device=dev)
+    enc.start_sequence(SequenceConfig(w, h, 23))
+    profiling.COUNTS.clear()
+    for a in (0, 40):
+        if held:
+            torch.cuda._sleep(200_000_000)
+        enc.push_chunk(frames[a:a + 40])
+    got = enc.finish()
+    assert profiling.COUNTS["staged_frames"] == 80
+    assert profiling.COUNTS["host_syncs"] == 14
+    if held:
+        assert profiling.COUNTS["staging_waits"] > 0
+    assert got == _core_stream(dev, cfg, frames, w, h, 23, 40)
+
+
+def test_push_chunk_keeps_no_view_of_the_callers_frames(dev):
+    """Each chunk's arrays overwritten as soon as push_chunk returns change
+    nothing: chunks of RING + 3 frames (longer than the ring), the stream
+    equal to the CPU encoder's on untouched copies."""
+    cfg, n = EncoderConfig(xl=5, yl=4), RING + 3
+    frames = video(13, 416, 64, 2 * n)
+    want = Encoder(cfg, device="cpu").encode(frames, 416, 64, 2, chunk_frames=n)
+    enc = Encoder(cfg, device=dev)
+    enc.start_sequence(SequenceConfig(416, 64, 2))
+    for a in range(0, len(frames), n):
+        chunk = [tuple(p.copy() for p in f) for f in frames[a:a + n]]
+        enc.push_chunk(chunk)
+        for f in chunk:
+            for p in f:
+                p[...] = 255 - p
+    assert enc.finish() == want
+
+
+def test_push_chunk_overflow_retry_reads_the_staged_frames(dev):
+    """Noise at tiny caps overflows each chunk of RING + 3 frames: the
+    retry at the bounds encodes the frames already staged on the card (each
+    frame staged once) and the stream equals the CPU encoder's at the same
+    caps."""
+    cfg, caps, n = EncoderConfig(xl=5, yl=4), dict(row_cap=64, frame_cap=256), RING + 3
+    frames = video(17, 416, 64, 2 * n, "noise")
+    profiling.COUNTS.clear()
+    got = Encoder(cfg, device=dev, **caps).encode(frames, 416, 64, 2, chunk_frames=n)
+    assert profiling.COUNTS["overflow_retries"] == 2
+    assert profiling.COUNTS["staged_frames"] == 2 * n
+    assert got == Encoder(cfg, device="cpu", **caps).encode(frames, 416, 64, 2,
+                                                              chunk_frames=n)
+
+
+def test_push_chunk_spans_on_card(dev, tmp_path):
+    """Under a profiler on the card: ``.stack`` once a frame (its copy into
+    a slot), ``.upload`` twice (the slot's wait, the copy's enqueue), the
+    other children once a chunk; 7 blocking reads a chunk, as on the CPU."""
+    cfg, n = EncoderConfig(xl=4, yl=4), RING + 2
+    frames = video(19, 64, 64, 2 * n)
+    enc = Encoder(cfg, device=dev)
+    enc.encode(frames[:n], 64, 64, 2, chunk_frames=n)          # the capture, untraced
+    profiling.reset()
+    with profiling.trace_to(str(tmp_path / "trace.json")):
+        got = enc.encode(frames, 64, 64, 2, chunk_frames=n)
+    spans, counts = profiling.traced()
+    assert spans["push_chunk.stack"][0] == 2 * n
+    assert spans["push_chunk.upload"][0] == 4 * n
+    for child in ("program", "sync", "download", "carry"):
+        assert spans["push_chunk." + child][0] == 2, child
+    assert counts["host_syncs"] == 14 and counts["staged_frames"] == 2 * n
+    assert got == Encoder(cfg, device="cpu").encode(frames, 64, 64, 2, chunk_frames=n)
 
 
 @pytest.mark.parametrize("w", [64, 416])
