@@ -1,16 +1,19 @@
 """The system under test, and what the check of the check puts in its place.
 
 ``port()`` is the PyTorch and CUDA port: its compiled program
-``encode_gop_scan`` and its public ``Encoder``, the only part of the
-repository outside this directory that the benchmark imports.
+``encode_gop_scan`` and its public ``Encoder``.  Outside this directory the
+benchmark imports only these and, to read the port's spans and counters
+(``tally.py``), ``fpga_mpeg2_encoder_tpu_torch.utils.profiling``.
 ``control()`` is the plain reference encoder at the next coarser quantiser
 (q_level + 1), in the port's place: the one step down in precision that a
 faster encoder could be tempted by.  The check has to find its streams not
 correct.  ``fault(name)`` is the port with one fault planted where its
 state or its answers are produced:
 
-* ``stale_state``: a step that returns its state unchanged (the recon that
-  the next P-frame predicts from is not carried);
+* ``stale_state``: a step that returns its state unchanged: the recon that
+  the next P-frame predicts from, the GOP position and the frame number are
+  not carried, so the next chunk or frame repeats the GOP headers' timecodes
+  (and, where it predicts, predicts from a stale picture);
 * ``altered_answer``: one bit of the payload flipped where it is produced.
 
 The check has to find each of them not correct as well.
@@ -110,20 +113,21 @@ def fault(name: str) -> types.SimpleNamespace:
     if name not in ("stale_state", "altered_answer"):
         raise ValueError(f"unknown fault {name!r}")
 
-    def gop_scan(fy, fu, fv, prev_y, prev_u, prev_v, *args, **kw):
-        out = base.encode_gop_scan(fy, fu, fv, prev_y, prev_u, prev_v, *args, **kw)
+    def gop_scan(fy, fu, fv, prev_y, prev_u, prev_v, i_frame0, frame_no0, *args, **kw):
+        out = base.encode_gop_scan(fy, fu, fv, prev_y, prev_u, prev_v, i_frame0, frame_no0,
+                                   *args, **kw)
         if name == "stale_state":
-            return (prev_y, prev_u, prev_v, *out[3:])
+            return (prev_y, prev_u, prev_v, *out[3:5], i_frame0, frame_no0, *out[7:])
         words, bits = out[3], int(out[4])
         words[bits // 64] ^= 1 << 7
         return out
 
     class Encoder(base.Encoder):
         def _planted(self, call, *args):
-            prev = self._prev
+            state = self._prev, self._i_frame, self._frame_no
             call(*args)
             if name == "stale_state":
-                self._prev = prev
+                self._prev, self._i_frame, self._frame_no = state
             elif name == "altered_answer":
                 last = bytearray(self._payload[-1])
                 last[len(last) // 2] ^= 0x80

@@ -9,8 +9,11 @@ of what the window produced against the plain reference, and prints one
 JSON line: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer metrics from the
 profiler), ``device`` and, last, ``checks`` (each compared number with its
-limit, which also end standard error).  With no card it exits with 2 and
-prints no result.
+limit, which also end standard error).  A traffic mix that names
+``host_threads`` runs torch's CPU work on that many threads.  With no card
+it exits with 2 and prints no result; where the process holds JAX or the
+JAX package once the window has closed, it names them and exits with 3,
+with no result.
 
 ``--program control`` puts the reference at the next coarser quantiser in
 the port's place, and ``--program fault:<name>`` plants one fault in the
@@ -28,6 +31,16 @@ import sys  # noqa: E402
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(1, os.path.dirname(HERE))
+# the reference package beside the port, and what it runs on: none of it may
+# load in the process that prints the result
+FORBIDDEN = ("jax", "jaxlib", "flax", "fpga_mpeg2_encoder_tpu")
+
+
+def forbidden_modules(names=None) -> list:
+    """The forbidden top-level names among the module names ``names``
+    (``sys.modules`` where none are given), compared whole."""
+    return sorted({m.split(".")[0] for m in (sys.modules if names is None else names)}
+                  & set(FORBIDDEN))
 
 
 def main(argv=None) -> int:
@@ -45,7 +58,8 @@ def main(argv=None) -> int:
     import harness
     import programs
 
-    chips = harness.workload(harness.benchmark(), args.workload)["chips"]
+    w = harness.workload(harness.benchmark(), args.workload)
+    chips = w["chips"]
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         print(f"run.py: {args.workload} needs {chips} CUDA device(s); torch sees "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
@@ -59,10 +73,17 @@ def main(argv=None) -> int:
         program = programs.fault(args.program.split(":", 1)[1])
     else:
         p.error(f"unknown --program {args.program!r}")
+    threads = harness.load_json("traffic", w["traffic"]).get("host_threads")
+    if threads:
+        torch.set_num_threads(threads)
     print(f"run.py: imports and the card's look {time.perf_counter() - T_START:.3f} s",
           file=sys.stderr)
     result = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
                               "cuda", program, T_START)
+    found = forbidden_modules()
+    if found:
+        print(f"run.py: the process loaded {', '.join(found)}; no result", file=sys.stderr)
+        return 3
     for k, v in result["checks"].items():
         print(f"check {k} {v['value']} limit {v['limit']}", file=sys.stderr)
     print(json.dumps(result), flush=True)

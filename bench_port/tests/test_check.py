@@ -5,6 +5,7 @@ in the port's place) or with a fault planted in the port: a step that
 returns its state unchanged, an answer altered where it is produced.  The
 cells run on one stream and one chip, so they can have no batch left half
 out and no exchange between chips left out."""
+import numpy as np
 import pytest
 import torch
 
@@ -45,3 +46,37 @@ def test_control_is_not_correct(cell):
 def test_fault_is_not_correct(cell, fault):
     res = run(cell, programs.fault(fault))
     assert not res["correct"], res["checks"]
+
+
+def small_chunk(n):
+    frames = harness.load("content", "synthetic").make(64, 64, n, 5)
+    return frames, [torch.as_tensor(np.stack([f[p] for f in frames])) for p in range(3)]
+
+
+def test_stale_state_scan_returns_its_state_unchanged():
+    # the recon planes, the GOP position and the frame number passed in come
+    # back as they went in, so a stream with no P-frame shows the fault too
+    _, planes = small_chunk(3)
+    prev = (torch.full((64, 64), 7, dtype=torch.uint8),
+            torch.full((32, 32), 9, dtype=torch.uint8),
+            torch.full((32, 32), 11, dtype=torch.uint8))
+    args = (*planes, *prev, 1, 17, 2)           # GOP position 1, frame 17, 2 P-frames
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=SMALL["row_cap"], frame_cap=SMALL["frame_cap"],
+              seq_cap=SMALL["frame_cap"])
+    good = programs.port().encode_gop_scan(*args, **kw)
+    out = programs.fault("stale_state").encode_gop_scan(*args, **kw)
+    assert all(a is b for a, b in zip(out[:3], prev))
+    assert (out[5], out[6]) == (1, 17)
+    assert (int(good[5]), int(good[6])) == (1, 20)
+    assert torch.equal(out[3], good[3]) and int(out[4]) == int(good[4])
+
+
+def test_stale_state_encoder_keeps_its_state():
+    frames, _ = small_chunk(3)
+    base = programs.port()
+    enc = programs.fault("stale_state").Encoder(base.EncoderConfig(), device="cpu")
+    enc.start_sequence(base.SequenceConfig(64, 64, 0))
+    enc.push_chunk(frames)
+    enc.push_frame(*frames[0])
+    assert (enc._prev, enc._i_frame, enc._frame_no) == (None, 0, 0)
+    assert len(enc._payload) == 3               # the sequence header and two answers

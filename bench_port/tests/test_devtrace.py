@@ -65,6 +65,16 @@ def test_readers_on_the_trace():
     assert roof.read(run, part) == pytest.approx(100 * bound / 20e-6)
 
 
+def test_download_reader_on_the_trace():
+    run = FakeRun(devtrace.reduce(EVENTS), [harness.Frame(True, bits=4096)] * 2)
+    for name in ("download_ms_per_frame.hd1152", "download_ms_per_frame.hd1152i"):
+        down, part = harness.reader(name)
+        # the DtoH copy's 10 us inside the window, over 2 frames
+        assert down.read(run, part) == pytest.approx(10e-6 * 1e3 / 2)
+    empty = FakeRun(devtrace.reduce(EVENTS[:1]), [harness.Frame(True)])
+    assert down.read(empty, part) is None
+
+
 def test_readers_return_nothing_where_nothing_ran():
     run = FakeRun(devtrace.reduce(EVENTS), [harness.Frame(True)])
     roof, part = harness.reader("acsym_roofline")

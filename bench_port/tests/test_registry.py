@@ -68,3 +68,38 @@ def test_unknown_names_raise():
         harness.workload(BENCH, "no_such.cell")
     with pytest.raises(FileNotFoundError):
         harness.load("stages", "no_such_stage")
+
+
+
+def test_forbidden_modules_compare_whole_top_level_names():
+    import run
+    assert run.forbidden_modules(["fpga_mpeg2_encoder_tpu_torch.ops", "torch", "jaxtyping"]) == []
+    assert run.forbidden_modules(["fpga_mpeg2_encoder_tpu.ops", "jaxlib.xla", "torch"]) \
+        == ["fpga_mpeg2_encoder_tpu", "jaxlib"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_host_threads_are_absent_or_a_positive_count(cell):
+    threads = harness.load_json("traffic", harness.workload(BENCH, cell)["traffic"]) \
+        .get("host_threads")
+    assert threads is None or (isinstance(threads, int) and threads >= 1)
+
+
+def test_run_takes_its_host_threads_from_the_traffic(monkeypatch):
+    import torch
+
+    import run
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(run, "forbidden_modules", lambda: [])
+    monkeypatch.setattr(harness, "run_cell", lambda *a, **k: seen.append(
+        torch.get_num_threads()) or {"checks": {}})
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(2)
+        assert run.main(["--workload", "hd1152_p23_vl3.host_chunks", "--seed", "1",
+                         "--seconds", "1"]) == 0
+        assert seen == [1]
+    finally:
+        torch.set_num_threads(before)

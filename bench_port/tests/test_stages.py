@@ -58,9 +58,12 @@ def test_merge_bound_on_the_tables_frame(phase3_row_bits):
 
 
 def test_motion_does_no_search_on_i_frames():
-    ops_p = harness.load("stages", "motion").work(G, harness.Frame(False))[1]
-    ops_i = harness.load("stages", "motion").work(G, harness.Frame(True))[1]
+    bytes_p, ops_p = harness.load("stages", "motion").work(G, harness.Frame(False))
+    bytes_i, ops_i = harness.load("stages", "motion").work(G, harness.Frame(True))
     assert ops_i == 0 and ops_p == G.mb * 256 * (13 ** 2 + 11) // 4
+    # the early exit reads no plane: it writes the maps and the predictions
+    writes = 9 * G.mb + G.width * G.height * 3 // 2
+    assert bytes_i == writes and bytes_p == writes + G.width * G.height * 5 // 2
 
 
 def test_int32_peak_of_an_h100():
