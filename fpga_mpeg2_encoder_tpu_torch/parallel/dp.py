@@ -13,6 +13,12 @@ next stream's replay.  Every launch goes to one CUDA stream, so the JAX
 package's order (a scan over frames of a vmap over streams) would change
 nothing.  A stream axis in the kernels' grids is later work.
 
+``encode_gops_batched`` takes the single-stream program it loops over as
+``program`` (by default the port's ``encode_gop_scan``), so that a caller
+can run the batch over any function with that program's contract.  The
+batch functions' spans (``batch.*``) and counters are listed in
+``utils/profiling``.
+
 Unlike the JAX package there is no statistical level budget (``budget_bps``):
 a row overflows exactly when its bits exceed 32 * row_cap, and an
 overflowing batch is encoded again at ``models.encoder.bound_caps``, as
@@ -38,19 +44,29 @@ from ..models.encoder import (
     resolve_device,
     words_to_bytes,
 )
+from ..utils.profiling import count, span
 from .mesh import local_range
 
 Frame = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
 
-def _stack_into(outs: List, b: int, n: int, values) -> None:
-    """Copy stream b's tensors ``values`` into the (n, ...) stacks ``outs``
-    (made at stream 0): a program's outputs are rewritten by its next call."""
-    if b == 0:
-        outs.extend(torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
-                    for v in values)
-    for out, v in zip(outs, values):
-        out[b].copy_(v)
+def _each_stream(n: int, encode) -> List[torch.Tensor]:
+    """``encode(b)`` for each of n streams, its outputs copied into (n, ...)
+    stacks made at stream 0: a program's outputs are rewritten by its next
+    call.  torch.empty enqueues nothing; each copy is one launch."""
+    outs: List[torch.Tensor] = []
+    for b in range(n):
+        with span("batch.stream", b):
+            values = encode(b)
+        with span("batch.collect", b):
+            if b == 0:
+                outs = [torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
+                        for v in values]
+            for out, v in zip(outs, values):
+                out[b].copy_(v)
+            count("host_launches", len(values))
+        count("batch_streams")
+    return outs
 
 
 def encode_frames_batched(y444, u444, v444, prev_y, prev_u, prev_v,
@@ -59,32 +75,33 @@ def encode_frames_batched(y444, u444, v444, prev_y, prev_u, prev_v,
     """One frame of each of B streams: (B, H, W) planes, (B, H, W) and
     (B, H/2, W/2) previous recons, B host ints each for i_frame and frame_no
     -> encode_frame_device's outputs stacked over the streams."""
-    n, outs = y444.shape[0], []
-    for b in range(n):
-        _stack_into(outs, b, n, encode_frame_device(
-            y444[b], u444[b], v444[b], prev_y[b], prev_u[b], prev_v[b], int(i_frame[b]),
-            int(frame_no[b]), yr=yr, ur=ur, q_level=q_level, row_cap=row_cap,
-            frame_cap=frame_cap))
-    return tuple(outs)
+    return tuple(_each_stream(y444.shape[0], lambda b: encode_frame_device(
+        y444[b], u444[b], v444[b], prev_y[b], prev_u[b], prev_v[b], int(i_frame[b]),
+        int(frame_no[b]), yr=yr, ur=ur, q_level=q_level, row_cap=row_cap,
+        frame_cap=frame_cap)))
 
 
 def encode_gops_batched(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
                         i_frame0: Sequence[int], frame_no0: Sequence[int],
                         pframes_count: int, *, yr: int, ur: int, q_level: int,
-                        row_cap: int, frame_cap: int, seq_cap: int):
+                        row_cap: int, frame_cap: int, seq_cap: int,
+                        program=encode_gop_scan):
     """F frames of each of B streams, (B, F, H, W) stacks, each stream
-    through encode_gop_scan.  Returns its outputs stacked over the streams:
-    recon_y, recon_u, recon_v (B, ...), seq_words (B, seq_cap + frame_cap +
-    1) int64, seq_bits (B,), i_frame, frame_no (B host ints each), overflow
-    (B,) bool, frame_bits (B, F), frame_i_frames (B, F) host ints."""
-    n, outs = frames_y.shape[0], []
-    for b in range(n):
-        _stack_into(outs, b, n, encode_gop_scan(
-            frames_y[b], frames_u[b], frames_v[b], prev_y[b], prev_u[b], prev_v[b],
-            int(i_frame0[b]), int(frame_no0[b]), pframes_count, yr=yr, ur=ur,
-            q_level=q_level, row_cap=row_cap, frame_cap=frame_cap, seq_cap=seq_cap))
-    ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = outs
-    return (ry, ru, rv, sw, sb, i_f.tolist(), fno.tolist(), ovf, fbits, fifs.tolist())
+    through ``program`` (encode_gop_scan, or a function with its contract).
+    Returns its outputs stacked over the streams: recon_y, recon_u, recon_v
+    (B, ...), seq_words (B, seq_cap + frame_cap + 1) int64, seq_bits (B,),
+    i_frame, frame_no (B host ints each), overflow (B,) bool, frame_bits
+    (B, F), frame_i_frames (B, F) host ints."""
+    with span("batch.gop"):
+        ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = _each_stream(
+            frames_y.shape[0], lambda b: program(
+                frames_y[b], frames_u[b], frames_v[b], prev_y[b], prev_u[b], prev_v[b],
+                int(i_frame0[b]), int(frame_no0[b]), pframes_count, yr=yr, ur=ur,
+                q_level=q_level, row_cap=row_cap, frame_cap=frame_cap, seq_cap=seq_cap))
+        with span("batch.sync"):
+            i_f, fno, fifs = i_f.tolist(), fno.tolist(), fifs.tolist()
+            count("host_syncs", 3)
+    return (ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs)
 
 
 class BatchEncoder:

@@ -37,12 +37,20 @@ The spans (``arg``: the sequence number of the call's first frame):
   (``encode_frame_device``'s);
 * ``replay.<kind>`` and ``capture.<kind>`` (``runtime/graphs.Step``; the
   kind is the program cache key's first element: ``gop``, ``frame``,
-  ``shard_local``, ``shard_tail``).
+  ``shard_local``, ``shard_tail``);
+* ``batch.gop`` (``parallel/dp.encode_gops_batched``, the whole call), its
+  children ``batch.stream`` (a stream's single-stream program; ``arg``: the
+  stream's index), ``batch.collect`` (the copies of that stream's outputs
+  into the batch's stacks; ``arg`` the same) and ``batch.sync`` (the
+  blocking reads of the GOP state and the frames' types); ``batch.stream``
+  and ``batch.collect`` also in ``encode_frames_batched``.
 
-The counters: ``host_syncs`` (each blocking device read of ``push_chunk``
-and ``push_frame``), ``host_launches`` (each host-side enqueue of the gop
-and frame programs: copies and fills into their tensors, the result's ops,
-the graph's replay), ``overflow_retries`` (each
+The counters: ``host_syncs`` (each blocking device read of ``push_chunk``,
+``push_frame`` and ``encode_gops_batched``), ``host_launches`` (each
+host-side enqueue of the gop and frame programs: copies and fills into
+their tensors, the result's ops, the graph's replay; and each copy of a
+stream's outputs into the batch's stacks), ``batch_streams`` (each stream
+that a batch call encodes), ``overflow_retries`` (each
 re-encode at ``models/encoder.bound_caps``), ``graph_captures``,
 ``staged_frames`` (each frame ``push_chunk`` copies up through a page-locked
 slot) and ``staging_waits`` (each time the host waits for a slot's copy to

@@ -38,7 +38,7 @@ from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
 from fpga_mpeg2_encoder_tpu_torch.models import encoder as M
 from fpga_mpeg2_encoder_tpu_torch.models.encoder import encode_frame_core
-from fpga_mpeg2_encoder_tpu_torch.parallel.dp import BatchEncoder
+from fpga_mpeg2_encoder_tpu_torch.parallel.dp import BatchEncoder, encode_gops_batched
 from fpga_mpeg2_encoder_tpu_torch.parallel import spatial as S
 from fpga_mpeg2_encoder_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
 from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import band_with_halo, frame_tail, make_local_step
@@ -967,6 +967,40 @@ def test_batch_encoder_on_card_equals_cpu(dev, w):
             assert all(_build.LAUNCHES[k] >= 15 for k in MAIN_PATH), _build.LAUNCHES
             assert _build.LAUNCHES["me_luma"] == _build.LAUNCHES["chroma_pred"] == 0
     assert streams["cuda"] == streams["cpu"]
+
+
+def test_batch_headend_8x576_equals_single_streams(dev):
+    """Eight 720x576 channels (12-frame GOPs; two calls of 7 frames, the
+    second starting on a P-frame and crossing a GOP) through
+    encode_gops_batched equal each channel's own encode_gop_scan on the
+    card: payload, recon and GOP state."""
+    w, h, pframes, streams, n = 720, 576, 11, 8, 7
+    row_cap, frame_cap = M.bound_caps(w, h)
+    kw = dict(yr=4, ur=2, q_level=2, row_cap=row_cap, frame_cap=frame_cap,
+              seq_cap=frame_cap * n)
+    videos = [video(40 + b, w, h, 2 * n, "noise" if b == 3 else "pan") for b in range(streams)]
+    planes = [torch.as_tensor(np.stack([np.stack([f[p] for f in v]) for v in videos]),
+                              device=dev) for p in range(3)]
+    z = torch.zeros((streams, h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((streams, h // 2, w // 2), dtype=torch.uint8, device=dev)
+    state = (z, zc, zc, [0] * streams, [0] * streams)
+    single = [(z[b], zc[b], zc[b], 0, 0) for b in range(streams)]
+    for first in (0, n):
+        stacks = [p[:, first:first + n] for p in planes]
+        ry, ru, rv, sw, sb, i_f, fno, ovf, _, _ = encode_gops_batched(*stacks, *state, pframes,
+                                                                      **kw)
+        assert not bool(ovf.any())
+        bits = sb.tolist()
+        for b in range(streams):
+            out = M.encode_gop_scan(*(s[b] for s in stacks), *single[b], pframes, **kw)
+            nb = int(out[4])
+            assert nb == bits[b] and torch.equal(out[3][:(nb + 31) // 32],
+                                                 sw[b, :(nb + 31) // 32]), (first, b)
+            for mine, theirs in zip((ry[b], ru[b], rv[b]), out[:3]):
+                assert torch.equal(mine, theirs)
+            assert (int(out[5]), int(out[6])) == (i_f[b], fno[b]) == ((first + n) % 12, first + n)
+            single[b] = (out[0].clone(), out[1].clone(), out[2].clone(), i_f[b], fno[b])
+        state = (ry, ru, rv, i_f, fno)
 
 
 def test_shard_local_steps_on_card_equal_encode_frame_core(dev):
