@@ -16,7 +16,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    for the P-frame with its header rows, the I-frame past the timecode's
    hour clamp, a band of rows from first_row 5 and the header rows alone;
    the merge kernel as merge_rows and as merge_append (the
-   frame loop's form) at every seq_bits & 31, cut at a cap and clamped.  At
+   frame loop's form) at every seq_bits & 31, cut at a cap and clamped; the
+   gop program's carry kernel at the GOP wrap and with a row or the frame
+   over its cap (untimed: a launch's worth of work).  At
    1920x1152 both are timed two ways: device time from torch.profiler (the
    kernel alone; all the plain version's kernels), and time per call from
    CUDA events around back-to-back calls, which includes the host's cost
@@ -77,8 +79,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    frame after frame with the GOP state on the card), against the eager
    path of 5a, 5b, 7 and 10a: (a) encode_gop_scan over 5a's 96 frames at
    bench caps: words equal to 5a's (so PAYLOAD_SHA256), each main-path
-   kernel counted exactly once a frame under replay and the split motion
-   kernels never, timed as 5a is (CUDA events, best of 3); (b) 16 frames
+   kernel and the carry kernel counted exactly once a frame under replay and
+   the split motion kernels never, timed as 5a is (CUDA events, best of 3); (b) 16 frames
    of it profiled as in phase 6: kernels, device ms, wall ms a frame and
    the idle share, beside phase 6's; (c) Encoder.encode(chunk_frames=48)
    gives the soak digest with each kernel exactly once a frame; (d) every
@@ -395,6 +397,7 @@ def main():
     from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
+    from fpga_mpeg2_encoder_tpu_torch.ops.kernels import carry as k_carry
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import colorspace as k_cs
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import glue as k_glue
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
@@ -435,6 +438,23 @@ def main():
     yr, ur = cfg.yr, cfg.ur
     timing = {}
     gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def carry_call(fn, rows, i_frame, over):
+        """The gop program's carry (kernel or plain) on made-up operands:
+        ``rows`` rows at exactly a cap of 16 words, the last one over it
+        (``over`` "row"), or the frame over its cap ("frame"); GOP position
+        ``i_frame`` of 24, frame 1439, k at the last of 64 slots.  Returns
+        every tensor it writes."""
+        t = lambda v, dtype=torch.int64: torch.tensor(v, dtype=dtype, device=dev)
+        row_bits = torch.full((rows,), 32 * 16, dtype=torch.int64, device=dev)
+        row_bits[rows - 1] += 8 if over == "row" else 0
+        state = (t(1000), t(False, torch.bool), t(i_frame, torch.int32), t(23, torch.int32),
+                 t(1439, torch.int32), t([63]))
+        per_frame = (torch.zeros(64, dtype=torch.int64, device=dev),
+                     torch.zeros(64, dtype=torch.int32, device=dev))
+        fn(row_bits, 16, t(4000), t(over == "frame", torch.bool), t(5000), state, per_frame)
+        return state + per_frame
+
     for (w, h) in ((W, H), (720, 576), (416, 64), (64, 64)):
         f0, f1 = make_frames(w, h, 2)
         y0, u0, v0 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f0))
@@ -594,6 +614,14 @@ def main():
                                a[0], a[1], rw, rb, a[2]),
                            (needed + 2 * WORD_BYTES * touched, 0)
                            if label == TIMED_APPEND else None))
+        # the gop program's carry kernel: the GOP wrap, a row or the frame
+        # over its cap (untimed: it is bound by its launch)
+        for label, i_frame, over in (("carry wrap", 23, "none"), ("carry row over", 5, "row"),
+                                     ("carry frame over", 0, "frame")):
+            checks.append((label, "gop_carry",
+                           lambda a=(2 + nby, i_frame, over): carry_call(k_carry.gop_carry, *a),
+                           lambda a=(2 + nby, i_frame, over): carry_call(k_carry.plain_carry,
+                                                                         *a), None))
         for label, kname, kern, plain, work in checks:
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -698,7 +726,7 @@ def main():
     finally:
         bitpack.append_bitstring = plain_append
     torch.cuda.synchronize()
-    launches_a = check_launches("5a", MAIN_PATH, ("me_luma", "chroma_pred"))
+    launches_a = check_launches("5a", MAIN_PATH, ("me_luma", "chroma_pred", "gop_carry"))
     if bool(out[7]):
         raise AssertionError("5a: payload overflow at bench caps")
     payload = check_payload("5a", out[3], int(out[4]))
@@ -953,11 +981,15 @@ def main():
 
     once = {**{k: 1 for k in MAIN_PATH}, "me_luma": 0, "chroma_pred": 0}
 
-    def exact(tag, n):
+    def exact(tag, n, carried):
+        """Each main-path kernel launched exactly n times, the carry kernel
+        ``carried`` times (once a frame of encode_gop_scan), the split
+        motion kernels never."""
         counts = dict(_build.LAUNCHES)
-        if counts != {k: v * n for k, v in once.items()}:
+        if counts != {**{k: v * n for k, v in once.items()}, "gop_carry": carried}:
             raise AssertionError(f"{tag}: launches {counts}, want each main-path kernel "
-                                 f"exactly {n} times and the split motion kernels never")
+                                 f"exactly {n} times, the carry kernel {carried} and the "
+                                 f"split motion kernels never")
         return counts
 
     def run_g(nf=NF):
@@ -971,7 +1003,7 @@ def main():
     _build.reset_launches()
     out_g = run_g()
     torch.cuda.synchronize()
-    launches_g = exact("11a", NF)
+    launches_g = exact("11a", NF, NF)
     nbits = int(out_g[4])
     if bool(out_g[7]) or nbits != int(out_a[4]) \
             or not torch.equal(out_g[3][:(nbits + 31) // 32], out_a[3][:(nbits + 31) // 32]):
@@ -1007,7 +1039,7 @@ def main():
     stream_g = Encoder(EncoderConfig(xl=7, yl=7), device="cuda", **CAPS).encode(
         frames, W, H, pframes_count=23, chunk_frames=48)
     torch.cuda.synchronize()
-    exact("11c", NF)
+    exact("11c", NF, NF)
     if len(stream_g) != SOAK_BYTES or hashlib.sha256(stream_g).hexdigest() != SOAK_SHA256:
         raise AssertionError("11c: Encoder.encode(chunk_frames=48) through the graphs != "
                              "the soak digest")
@@ -1027,7 +1059,7 @@ def main():
                                                       partial_groups=groups,
                                                       chunk_frames=chunk)
             torch.cuda.synchronize()
-            exact(f"11d {w}x{h} q{q} vl{vl} chunk {chunk}", n)
+            exact(f"11d {w}x{h} q{q} vl{vl} chunk {chunk}", n, 0 if chunk == 1 else n)
             if got != want:
                 raise AssertionError(f"11d {w}x{h} q{q} vl{vl} {kind} {stop} chunk {chunk}: "
                                      f"stream != golden")

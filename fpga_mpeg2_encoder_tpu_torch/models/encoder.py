@@ -44,6 +44,7 @@ import torch
 from ..config import EncoderConfig, SequenceConfig
 from ..core.bitstream import BitWriter, SEQUENCE_END_CHUNKS, sequence_header_chunks
 from ..ops import entropy
+from ..ops.kernels import carry as k_carry
 from ..ops.kernels import colorspace as k_colorspace
 from ..ops.kernels import me as k_me
 from ..ops.kernels import pack as k_pack
@@ -87,26 +88,21 @@ def encode_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
     return recon_y, recon_u, recon_v, fwords, fbits, pack_ovf | (fbits > 32 * frame_cap)
 
 
-def _gop_step(carry, frame, pframes_count, *, yr: int, ur: int, q_level: int,
-              row_cap: int, frame_cap: int, new_bits=None):
+def _gop_step(carry, frame, pframes_count: int, *, yr: int, ur: int, q_level: int,
+              row_cap: int, frame_cap: int):
     """One frame of encode_gop_scan_core, JAX's scan ``step``: carry (prev
     (recon_y, recon_u, recon_v), seq_words, seq_bits, overflow, i_frame,
     frame_no) and frame (y444, u444, v444) -> (the next carry, (the frame's
-    bits, its GOP position)).  The frame's rows go into seq_words in place;
-    the new seq_bits into ``new_bits`` where given (k_pack.merge_append).
-    The GOP position and the frame number are host ints or 0-d tensors, and
-    stay what they are."""
+    bits, its GOP position)).  The frame's rows go into seq_words in place.
+    The GOP position and the frame number are host ints."""
     prev, seq_w, seq_b, ovf, i_f, fno = carry
     ry, ru, rv, slots = symbolize_frame_core(*frame, *prev, i_f, fno,
                                              yr=yr, ur=ur, q_level=q_level)
     row_words, row_bits, pack_ovf = k_pack.pack_slots(slots, row_cap)
     # the frame's rows straight into the sequence buffer: one launch
     seq_w, seq_b, fb, frame_ovf = k_pack.merge_append(seq_w, seq_b, row_words, row_bits,
-                                                      frame_cap, new_bits=new_bits)
-    if torch.is_tensor(i_f):
-        i_next = torch.where(i_f >= pframes_count, 0, i_f + 1)
-    else:
-        i_next = 0 if i_f >= pframes_count else i_f + 1
+                                                      frame_cap)
+    i_next = 0 if i_f >= pframes_count else i_f + 1
     return ((ry, ru, rv), seq_w, seq_b, ovf | pack_ovf | frame_ovf, i_next, fno + 1), (fb, i_f)
 
 
@@ -189,12 +185,18 @@ class _FrameProgram:
 
 class _GopProgram:
     """encode_gop_scan's carry and its step on one device.  The step is
-    _gop_step, encode_gop_scan_core's frame, on the program's tensors: frame
-    ``frame`` in, the recon carried in ``prev``, the frame's rows appended to
-    the sequence buffer, the overflow ORed, the frame's bits and GOP
-    position written at index ``k`` of the per-frame outputs, and the GOP
-    position, the frame number and k advanced on the device.  The per-frame
-    outputs hold ``frames_cap`` frames."""
+    encode_gop_scan_core's frame on the program's tensors: frame ``frame``
+    in, the frame's rows appended to the sequence buffer, and the carry kept
+    in the program's own tensors, written where it is formed.  The motion
+    kernel reads the GOP position ``i_frame`` as it stands; the transform
+    writes the recon into ``prev`` in place (the motion kernel, the only
+    reader of ``prev`` in the step, has ended by then, in stream order); the
+    carry kernel (ops/kernels/carry.py), after the merge, ORs the overflow,
+    carries the sequence bit count, writes the frame's bits and GOP position
+    at index ``k`` of the per-frame outputs, and advances the GOP position,
+    the frame number and k.  On a card the step is the seven stage kernels,
+    the header rows' cat and the carry kernel, and nothing else.  The
+    per-frame outputs hold ``frames_cap`` frames."""
 
     def __init__(self, dev, h, w, *, yr, ur, q_level, row_cap, frame_cap, seq_cap,
                  frames_cap):
@@ -211,22 +213,26 @@ class _GopProgram:
         self.frame_bits = torch.zeros(frames_cap, dtype=torch.int64, device=dev)
         self.frame_ifs = torch.zeros(frames_cap, dtype=torch.int32, device=dev)
         self.seq_cap, self.frames_cap = seq_cap, frames_cap
-        self._kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap)
+        self.yr, self.ur, self.q_level = yr, ur, q_level
+        self.row_cap, self.frame_cap = row_cap, frame_cap
         self.step = graphs.Step(self._step, dev, "gop")
         self._feed_launches = 3 + self.step.launches_a_call      # the planes, the replay
 
     def _step(self) -> None:
-        carry = (self.prev, self.seq_words, self.seq_bits, self.overflow, self.i_frame,
-                 self.frame_no)
-        (prev, _, seq_b, ovf, i_f, fno), (fb, i_this) = _gop_step(
-            carry, self.frame, self.pframes, **self._kw, new_bits=self.new_bits)
-        self.frame_bits.scatter_(0, self.k, fb.view(1))
-        self.frame_ifs.scatter_(0, self.k, i_this.view(1))
-        # the carry into the program's tensors (seq_words was written in place)
-        for dst, src in zip((*self.prev, self.seq_bits, self.overflow, self.i_frame,
-                             self.frame_no), (*prev, seq_b, ovf, i_f, fno)):
-            dst.copy_(src)
-        self.k.add_(1)
+        y, u, v = k_colorspace.subsample_420(*self.frame)
+        mr = k_me.estimate_and_predict_planes(y, u, v, *self.prev, None, self.yr, self.ur,
+                                              position=self.i_frame)
+        quant_zig, *_ = k_transform.transform_recon(y, u, v, mr.pred_y, mr.pred_u, mr.pred_v,
+                                                    mr.inter, self.q_level, out=self.prev)
+        slots = entropy.symbolize_frame(quant_zig, mr.inter, mr.mvx, mr.mvy, self.i_frame,
+                                        self.frame_no, self.q_level)
+        row_words, row_bits = k_pack.pack_rows(slots, self.row_cap)
+        _, _, fbits, frame_ovf = k_pack.merge_append(self.seq_words, self.seq_bits, row_words,
+                                                     row_bits, self.frame_cap,
+                                                     new_bits=self.new_bits)
+        k_carry.gop_carry(row_bits, self.row_cap, fbits, frame_ovf, self.new_bits,
+                          (self.seq_bits, self.overflow, self.i_frame, self.pframes,
+                           self.frame_no, self.k), (self.frame_bits, self.frame_ifs))
 
     def start(self, prev, i_frame0, frame_no0, pframes_count) -> None:
         """Set the carry for a new chunk: the reference planes, the GOP

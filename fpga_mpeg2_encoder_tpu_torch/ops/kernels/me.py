@@ -88,14 +88,22 @@ def _check_planes(nby: int, nbx: int, halo: bool, luma=None, chroma=(),
 def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe, yr: int,
                           ur: int, first_mb_row: int = 0,
                           total_mb_rows: Optional[int] = None, halo: bool = False,
-                          as_plane: bool = False) -> Tuple[torch.Tensor, ...]:
+                          as_plane: bool = False, *, position=None
+                          ) -> Tuple[torch.Tensor, ...]:
     """cur_y (H, W) uint8; prev_y (H, W) uint8, or (H + 16, W) with ``halo``;
     prev_u/prev_v (H/2, W/2), or (H/2 + 8, W/2) with ``halo`` -> (inter
     (nby, nbx) bool, mvx, mvy (nby, nbx) int32 half-pel, pred_y, pred_u,
     pred_v uint8).  ``is_iframe``: a bool, or a 0-d bool or int tensor on
-    the planes' device (nonzero: an I-frame)."""
+    the planes' device (nonzero: an I-frame).  Or, with ``is_iframe`` None,
+    ``position``: the frame's GOP position, a 0-d int32 tensor there (0: an
+    I-frame), which the kernel reads as it stands (the compiled gop
+    program's own GOP state)."""
+    if (position is None) == (is_iframe is None):
+        raise ValueError("give one of is_iframe and position")
     nby, nbx, total = _band(cur_y, yr, total_mb_rows)
     if _build.on_cpu(cur_y, prev_y, prev_u, prev_v):
+        if position is not None:
+            is_iframe = position == 0
         if not halo:
             prev_y = motion.pad_halo(prev_y, motion.LUMA_HALO)
             prev_u = motion.pad_halo(prev_u, motion.CHROMA_HALO)
@@ -106,11 +114,15 @@ def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe, yr: int,
     _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16), align=8)
     _check_planes(nby, nbx, halo, prev_y, ((prev_u, "prev_u"), (prev_v, "prev_v")))
     dev = cur_y.device
+    if position is None:
+        position = _gop_position(is_iframe, dev)
+    else:                   # read as it stands: nothing is launched to form it
+        _build.check(position, "position", torch.int32, ())
     inter, mvx, mvy = _meta(nby, nbx, dev)
     py, pu, pv = (_pred(nby, nbx, 16, as_plane, dev), _pred(nby, nbx, 8, as_plane, dev),
                   _pred(nby, nbx, 8, as_plane, dev))
     _build.launch("mpeg2_me_fused", "me_fused", dev, cur_y, prev_y, prev_u, prev_v,
-                  _gop_position(is_iframe, dev), inter, mvx, mvy, py, pu, pv, nby, nbx,
+                  position, inter, mvx, mvy, py, pu, pv, nby, nbx,
                   yr, first_mb_row, total, int(halo), int(as_plane))
     return inter, mvx, mvy, py, pu, pv
 
@@ -163,13 +175,14 @@ def chroma_pred(prev_u, prev_v, inter, mvx, mvy, ur: int, halo: bool = False,
 
 
 def estimate_and_predict_planes(cur_y, cur_u, cur_v, prev_y, prev_u, prev_v,
-                                is_iframe, yr: int, ur: int
+                                is_iframe, yr: int, ur: int, *, position=None
                                 ) -> motion.MotionResult:
     """The main path's motion stage: motion.estimate_and_predict_planes'
-    contract (predictions as planes), through the fused kernel."""
+    contract (predictions as planes), through the fused kernel; ``position``
+    as motion_estimate_fused takes it."""
     del cur_u, cur_v    # the reference searches luma only
     return motion.MotionResult(*motion_estimate_fused(
-        cur_y, prev_y, prev_u, prev_v, is_iframe, yr, ur, as_plane=True))
+        cur_y, prev_y, prev_u, prev_v, is_iframe, yr, ur, as_plane=True, position=position))
 
 
 def estimate_and_predict_local(cur_y, prev_y_h, prev_u_h, prev_v_h, is_iframe,

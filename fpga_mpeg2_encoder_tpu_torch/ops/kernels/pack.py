@@ -5,7 +5,9 @@ replaces ops/pallas/pack.py::merge_rows_pallas of the JAX package;
 pack_symbols replaces pack_symbols_pallas, which on the TPU as here forms the
 slots and calls the pack kernel, and launches nothing of its own.
 merge_append is merge_rows followed by bitpack.append_bitstring, the frame
-loop's per-frame append, in one launch of the same merge kernel.
+loop's per-frame append, in one launch of the same merge kernel.  pack_rows
+is pack_slots without its overflow flag, for the compiled gop program,
+whose carry kernel tests the row bits itself.
 
 pack_slots is bound by reading the slots (at 1920x1152: 3.5 M int32 slots,
 14 MB) and writing the words.  Each row is cut into tiles of 4096 slots, one
@@ -77,6 +79,16 @@ def pack_slots(slots: torch.Tensor, cap_words: int
     The slots' data must be 16-byte aligned (the kernel's vector loads)."""
     if _build.on_cpu(slots):
         return bitpack.pack_slots(slots, cap_words)
+    words, bits = pack_rows(slots, cap_words)
+    return words, bits, (bits > 32 * cap_words).any()
+
+
+def pack_rows(slots: torch.Tensor, cap_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """pack_slots without its overflow flag, one launch and no other
+    operation: (words, bits).  A row overflows where its bits exceed 32 *
+    cap_words; the compiled gop program's carry kernel tests that."""
+    if _build.on_cpu(slots):
+        return bitpack.pack_slots(slots, cap_words)[:2]
     r, s = slots.shape
     _build.check(slots, "slots", torch.int32, (r, s), align=16)
     words = torch.empty((r, cap_words), dtype=torch.int64, device=slots.device)
@@ -84,7 +96,7 @@ def pack_slots(slots: torch.Tensor, cap_words: int
     buf, capacity = _lookback_buffer(slots.device, r * ((s + 3 + TILE - 1) // TILE))
     _build.launch("mpeg2_pack_slots", "pack_slots", slots.device,
                   slots, words, bits, buf, r, s, cap_words, capacity)
-    return words, bits, (bits > 32 * cap_words).any()
+    return words, bits
 
 
 def pack_symbols(codes: torch.Tensor, lens: torch.Tensor, cap_words: int

@@ -10,8 +10,9 @@ H100's 3.35 TB/s, so device memory bounds it.  The kernel runs 8 threads per
 8x8 tile in every phase, 8 macroblocks per block, with 8-byte pixel loads
 and stores, the tile turned between passes in shared memory within a warp,
 a multiply in place of the intra division, and the coefficients written in
-16-byte stores.  On CPU tensors the plain version ops/dct.py::transform_recon
-runs instead.
+16-byte stores.  The recon goes to new planes, or in place into planes the
+caller gives (``out``: the compiled gop program's reference planes).  On CPU
+tensors the plain version ops/dct.py::transform_recon runs instead.
 
 ``transform_stage`` runs one stage of the kernel's own device code on int32
 tiles of any value: the tests reach through it the wraps and clamps that
@@ -28,13 +29,25 @@ STAGES = ("fdct", "quantize", "idct")
 
 
 def transform_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
-                    inter: torch.Tensor, q_level: int):
+                    inter: torch.Tensor, q_level: int, out=None):
     """cur_*: (H, W) / (H/2, W/2) uint8; pred_*: uint8 planes of the same
     shapes; inter: (H/16, W/16) bool.  Returns (quant_zig (nby, nbx, 6, 64)
-    int32, recon_y, recon_u, recon_v uint8)."""
+    int32, recon_y, recon_u, recon_v uint8).  ``out``: three uint8 planes of
+    the recon's shapes, none of them an input, that the reconstruction is
+    written into in place and returned as (the compiled gop program's
+    reference planes); by default new tensors."""
     args = (cur_y, cur_u, cur_v, pred_y, pred_u, pred_v, inter)
-    if _build.on_cpu(*args):
-        return dct.transform_recon(*args, q_level)
+    if out is not None:
+        out = tuple(out)
+        if any(o.data_ptr() == a.data_ptr() for o in out for a in args):
+            raise ValueError("out: a recon plane must not be an input of the transform")
+    if _build.on_cpu(*args, *(out or ())):
+        qzig, *recon = dct.transform_recon(*args, q_level)
+        if out is None:
+            return (qzig, *recon)
+        for dst, src in zip(out, recon):
+            dst.copy_(src)
+        return (qzig, *out)
     h, w = cur_y.shape
     if h % 16 or w % 16:
         raise ValueError(f"frame {h}x{w} is not a multiple of 16")
@@ -50,9 +63,14 @@ def transform_recon(cur_y, cur_u, cur_v, pred_y, pred_u, pred_v,
     _build.check(inter, "inter", torch.bool, (nby, nbx))
     dev = cur_y.device
     qzig = torch.empty((nby, nbx, 6, 64), dtype=torch.int32, device=dev)
-    ry = torch.empty((h, w), dtype=torch.uint8, device=dev)
-    ru = torch.empty((h // 2, w // 2), dtype=torch.uint8, device=dev)
-    rv = torch.empty((h // 2, w // 2), dtype=torch.uint8, device=dev)
+    if out is None:
+        out = (torch.empty((h, w), dtype=torch.uint8, device=dev),
+               *(torch.empty((h // 2, w // 2), dtype=torch.uint8, device=dev)
+                 for _ in range(2)))
+    for t, name, shape in zip(out, ("out_y", "out_u", "out_v"),
+                              ((h, w), (h // 2, w // 2), (h // 2, w // 2))):
+        _build.check(t, name, torch.uint8, shape, align=8)    # 8-byte row stores
+    ry, ru, rv = out
     _build.launch("mpeg2_transform", "transform", dev, *args,
                   qzig, ry, ru, rv, nby, nbx, q_level)
     return qzig, ry, ru, rv

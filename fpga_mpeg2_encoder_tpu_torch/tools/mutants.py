@@ -6,6 +6,7 @@
     python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py pack.cu
     python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py glue.cu
     python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py subsample.cu
+    python3 fpga_mpeg2_encoder_tpu_torch/tools/mutants.py carry.cu
 
 Each mutant breaks one exactness trap (or one step of the design) of the
 kernel source with a one-line change.  It runs in its own copy of the port
@@ -203,6 +204,20 @@ MUTANTS = {
          "*reinterpret_cast<const uint4*>(src + 2 * w);"),
         ("output_column", "(long long)r * (w / 2) + 8 * g", "(long long)r * (w / 2) + 4 * g"),
         ("plane_select", "(second ? v : u)", "(second ? u : v)"),
+    ]),
+    "carry.cu": ("carry", [
+        ("gop_wrap", "pos >= pframes ? 0", "pos > pframes ? 0"),
+        ("scatter_index", "a.frame_bits[k] = fbits;", "a.frame_bits[0] = fbits;"),
+        ("scatter_index_ifs", "a.frame_ifs[k] = pos;", "a.frame_ifs[0] = pos;"),
+        ("seq_bits_carry", "*a.seq_bits = new_bits;", "*a.seq_bits = fbits;"),
+        ("row_overflow_or", "over_before || row_over || frame_over",
+         "over_before || frame_over"),
+        ("row_overflow_at_cap", "a.row_bits[i] > cap_bits", "a.row_bits[i] >= cap_bits"),
+        ("row_lanes", "i < a.r; i += 32)", "i < a.r; i += 64)"),
+        ("frame_overflow_or", "row_over || frame_over;", "row_over;"),
+        ("overflow_sticky", "*a.overflow = over_before || row_over", "*a.overflow = row_over"),
+        ("frame_no_increment", "(uint32_t)frame_no + 1u", "(uint32_t)frame_no"),
+        ("k_advance", "*a.k = k + 1;", "*a.k = k;"),
     ]),
 }
 

@@ -15,6 +15,7 @@ kernels also get made-up operands that reach every run, escape, tile edge,
 look-back chain and cap.  Slots are int32 holding the uint32 pattern.
 """
 import contextlib
+import json
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from fpga_mpeg2_encoder_tpu_torch.golden import encoder as G
 from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import acsym as k_acsym
+from fpga_mpeg2_encoder_tpu_torch.ops.kernels import carry as k_carry
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import colorspace as k_colorspace
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import glue as k_glue
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
@@ -1071,8 +1073,8 @@ def test_graph_me_pack_gop_scan_equals_core(dev, w):
     encode_gop_scan_core in all ten outputs: two chunks (4 frames, then 3
     from the first chunk's recon and GOP state), I and P frames, the GOP
     wrapping (pframes_count 2 from position 1) and the timecode rolling over
-    at frame 1440.  LAUNCHES counts each main-path kernel exactly once a
-    frame, the capture's warm-up not at all."""
+    at frame 1440.  LAUNCHES counts each main-path kernel and the carry
+    kernel exactly once a frame, the capture's warm-up not at all."""
     h, kw = 64, dict(yr=6, ur=3, q_level=2, row_cap=8192, frame_cap=65536, seq_cap=131072)
     graphs.clear()
     stacks = _stacks(dev, w, h, 7, w)
@@ -1088,7 +1090,7 @@ def test_graph_me_pack_gop_scan_equals_core(dev, w):
         got = M.encode_gop_scan(*chunk, *prev, i0, f0, 2, **kw)
         torch.cuda.synchronize()
         assert _build.LAUNCHES == {**{k: b - a for k in MAIN_PATH}, "me_luma": 0,
-                                   "chroma_pred": 0}, _build.LAUNCHES
+                                   "chroma_pred": 0, "gop_carry": b - a}, _build.LAUNCHES
         for k in range(3):
             assert torch.equal(got[k], want[k]), k
         nbits = int(want[4])
@@ -1162,7 +1164,7 @@ def test_graph_me_pack_batch_encoder_replays(dev):
     be.push_chunks([v[1:5] for v in videos])
     torch.cuda.synchronize()
     assert _build.LAUNCHES == {**{k: 15 for k in MAIN_PATH}, "me_luma": 0,
-                               "chroma_pred": 0}, _build.LAUNCHES
+                               "chroma_pred": 0, "gop_carry": 12}, _build.LAUNCHES
     got = be.finish()
     for b, v in enumerate(videos):
         enc = Encoder(cfg, device=dev)
@@ -1322,7 +1324,8 @@ def test_graph_me_pack_shard_programs_equal_core(dev, w, h):
         torch.cuda.synchronize()
         assert _build.LAUNCHES == {"subsample": 4, "me_fused": 4, "transform": 4,
                                    "glue": 5, "acsym": 4, "pack_slots": 5, "merge_rows": 1,
-                                   "me_luma": 0, "chroma_pred": 0}, _build.LAUNCHES
+                                   "me_luma": 0, "chroma_pred": 0, "gop_carry": 0}, \
+            _build.LAUNCHES
         _sharded_equal(got, want, k)
         prev_c, prev_g = want[:3], got[:3]
     assert all(graphs._programs[key].step._graph is not None for key in graphs._programs
@@ -1379,7 +1382,8 @@ def test_graph_me_pack_one_rank_nccl_program_feeds_back(dev, tmp_path):
             torch.cuda.synchronize()
             assert _build.LAUNCHES == {"subsample": 1, "me_fused": 1, "transform": 1,
                                        "glue": 2, "acsym": 1, "pack_slots": 2,
-                                       "merge_rows": 1, "me_luma": 0, "chroma_pred": 0}, \
+                                       "merge_rows": 1, "me_luma": 0, "chroma_pred": 0,
+                                       "gop_carry": 0}, \
                 _build.LAUNCHES
             _sharded_equal(got, want, k)
             prev_d, prev_s = tuple(t.clone() for t in want[:3]), got[:3]
@@ -1412,7 +1416,8 @@ def test_graph_me_pack_one_rank_nccl_batch_program(dev, tmp_path):
             torch.cuda.synchronize()
             assert _build.LAUNCHES == {"subsample": 3, "me_fused": 3, "transform": 3,
                                        "glue": 6, "acsym": 3, "pack_slots": 6,
-                                       "merge_rows": 3, "me_luma": 0, "chroma_pred": 0}, \
+                                       "merge_rows": 3, "me_luma": 0, "chroma_pred": 0,
+                                       "gop_carry": 0}, \
                 _build.LAUNCHES
             for s in range(b):
                 want = M.encode_frame_device(*(t[k] for t in stacks[s]), *prev_s[s], i_f[s],
@@ -1420,3 +1425,260 @@ def test_graph_me_pack_one_rank_nccl_batch_program(dev, tmp_path):
                 _sharded_equal(tuple(o[s] for o in got), want, (k, s))
                 prev_s[s] = tuple(t.clone() for t in want[:3])
             prev_b = got[:3]
+
+
+# ---- the gop program's carry kernel, its in-place recon and F's operand -----
+
+def _carry_case(dev, i_frame, pframes, k, over):
+    """Operands of the carry kernel: 74 rows (1920x1152) at exactly their
+    cap of 16 words, one of them (row 40, past the first 32 lanes) 8 bits
+    over where ``over`` is "row"; the merge's frame bits 3000, its overflow
+    set where ``over`` is "frame"; the chunk's overflow already set where it
+    is "sticky"; the sequence at 12345 bits; frame 1439; k of 64 frames."""
+    row_bits = torch.full((74,), 32 * 16, dtype=torch.int64, device=dev)
+    row_bits[40] += 8 if over == "row" else 0
+    merge = (torch.tensor(3000, dtype=torch.int64, device=dev),
+             torch.tensor(over == "frame", device=dev),
+             torch.tensor(12345 + 3000, dtype=torch.int64, device=dev))
+
+    def state():
+        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+        return ((torch.tensor(12345, dtype=torch.int64, device=dev),
+                 torch.tensor(over == "sticky", device=dev), i32(i_frame), i32(pframes),
+                 i32(1439), torch.tensor([k], dtype=torch.int64, device=dev)),
+                (torch.full((64,), -1, dtype=torch.int64, device=dev),
+                 torch.full((64,), -1, dtype=torch.int32, device=dev)))
+    return row_bits, merge, state
+
+
+@pytest.mark.parametrize("over", ["row", "frame", "sticky", "none"])
+@pytest.mark.parametrize("k", [0, 63])
+@pytest.mark.parametrize("i_frame,pframes", [(2, 2), (1, 2), (0, 2), (0, 0)])
+def test_carry_kernel_equals_plain(dev, i_frame, pframes, k, over):
+    """The carry kernel equals its plain version in every tensor it writes,
+    one launch: the GOP wrap at i_frame = pframes and pframes 0, k at both
+    ends of the per-frame outputs, the overflow from a row past lane 31,
+    from the frame, carried from an earlier frame, or none (every row at
+    exactly its cap is no overflow)."""
+    row_bits, merge, state = _carry_case(dev, i_frame, pframes, k, over)
+    got, want = state(), state()
+    _launched("gop_carry", lambda: k_carry.gop_carry(row_bits, 16, *merge, *got))
+    k_carry.plain_carry(row_bits, 16, *merge, *want)
+    _equal(got[0] + got[1], want[0] + want[1])
+    assert bool(got[0][1]) is (over != "none")
+
+
+def test_carry_wrapper_checks_inputs(dev):
+    """The carry's wrapper refuses operands of another dtype or shape and
+    operands on two devices."""
+    row_bits, merge, state = _carry_case(dev, 0, 2, 0, "none")
+    (seq_bits, ovf, i_f, pf, fno, k), per_frame = state()
+    with pytest.raises(TypeError, match="i_frame"):
+        k_carry.gop_carry(row_bits, 16, *merge, (seq_bits, ovf, i_f.long(), pf, fno, k),
+                          per_frame)
+    with pytest.raises(ValueError, match="k"):
+        k_carry.gop_carry(row_bits, 16, *merge, (seq_bits, ovf, i_f, pf, fno, k[0]), per_frame)
+    with pytest.raises(ValueError, match="devices"):
+        k_carry.gop_carry(row_bits.cpu(), 16, *merge, (seq_bits, ovf, i_f, pf, fno, k),
+                          per_frame)
+
+
+def _device_ops(fn, tmp_path, expect):
+    """The names of the device operations (kernels, copies, fills) that one
+    call of ``fn`` runs, from the profiler's trace, and its output.  The
+    profiler now and then returns a window without some of a short call's
+    events: a window with fewer than ``expect`` is taken again, up to three
+    times."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        path = tmp_path / f"trace{attempt}.json"
+        prof.export_chrome_trace(str(path))
+        ops = sorted(e["name"] for e in json.loads(path.read_text())["traceEvents"]
+                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        if len(ops) >= expect:
+            break
+    return out, ops
+
+
+@pytest.mark.parametrize("position", [0, 1, 7])
+def test_graph_me_kernel_reads_the_gop_position_as_it_stands(dev, tmp_path, position):
+    """motion_estimate_fused with ``position`` (a 0-d int32 GOP position,
+    0 an I-frame) gives what ``is_iframe`` gives, in one launch and no other
+    device operation; it refuses both operands, neither, or another dtype."""
+    cur, py, pu, pv = _me_planes(dev, 416, 64, "pan", 6)
+    want = k_me.motion_estimate_fused(cur, py, pu, pv, position == 0, 6, 3)
+    t = torch.tensor(position, dtype=torch.int32, device=dev)
+    got, ops = _device_ops(lambda: _launched("me_fused", lambda: k_me.motion_estimate_fused(
+        cur, py, pu, pv, None, 6, 3, position=t)), tmp_path, 1)
+    _equal(got, want)
+    assert len(ops) == 1 and "me_fused_kernel" in ops[0], ops
+    for bad in (dict(is_iframe=True, position=t), dict(is_iframe=None)):
+        with pytest.raises(ValueError, match="one of"):
+            k_me.motion_estimate_fused(cur, py, pu, pv, yr=6, ur=3, **bad)
+    with pytest.raises(TypeError, match="position"):
+        k_me.motion_estimate_fused(cur, py, pu, pv, None, 6, 3, position=t.long())
+
+
+def test_transform_kernel_recon_in_place(dev):
+    """transform_recon(out=) writes the kernel's recon into the given
+    planes and returns them, equal to the recon in new planes, one launch;
+    it refuses an input as an output."""
+    (y, u, v), mr = _frame_on(dev, 416, 64)
+    args = (y, u, v, mr.pred_y, mr.pred_u, mr.pred_v, mr.inter, 2)
+    want = k_tf.transform_recon(*args)
+    out = (torch.full_like(y, 7), torch.full_like(u, 7), torch.full_like(v, 7))
+    got = _launched("transform", lambda: k_tf.transform_recon(*args, out=out))
+    assert all(g is o for g, o in zip(got[1:], out))
+    _equal(got, want)
+    with pytest.raises(ValueError, match="input"):
+        k_tf.transform_recon(*args, out=(y, out[1], out[2]))
+
+
+def test_pack_rows_equals_pack_slots(dev):
+    """pack_rows is pack_slots without its overflow flag: the same words
+    and bits from one launch of the pack kernel, at a cap that overflows
+    and one that does not."""
+    slots = _slots(dev, 6, 3 + 394 * 26, 7)
+    for cap in (16, 4096):
+        want = k_pack.pack_slots(slots, cap)
+        got = _launched("pack_slots", lambda: k_pack.pack_rows(slots, cap))
+        _equal(got, want[:2])
+        assert bool(want[2]) is (cap == 16)
+
+
+def _gop_chunks(dev, w, h, pframes, i0, chunks, seed):
+    """``chunks`` (a, b) of one clip through encode_gop_scan and through the
+    eager encode_gop_scan_core, each call from the last one's recon, GOP
+    position and frame number (the program fed its own outputs), at the
+    bounds' caps; all ten outputs compared, and the launches of each call:
+    each main-path kernel and the carry kernel once a frame.  Returns the
+    frames' GOP positions."""
+    row_cap, frame_cap = M.bound_caps(w, h)
+    n = max(b - a for a, b in chunks)
+    kw = dict(yr=6 if w > 720 else 4, ur=3 if w > 720 else 2, q_level=2, row_cap=row_cap,
+              frame_cap=frame_cap, seq_cap=frame_cap * n)
+    stacks = _stacks(dev, w, h, chunks[-1][1], seed)
+    zy = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev)
+    core, prog, positions = ((zy, zc, zc), i0, 1437), ((zy, zc, zc), i0, 1437), []
+    for a, b in chunks:
+        chunk = [t[a:b] for t in stacks]
+        want = M.encode_gop_scan_core(*chunk, *core[0], core[1], core[2], pframes, **kw)
+        _build.reset_launches()
+        got = M.encode_gop_scan(*chunk, *prog[0], prog[1], prog[2], pframes, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {**{k: b - a for k in MAIN_PATH}, "me_luma": 0,
+                                   "chroma_pred": 0, "gop_carry": b - a}, _build.LAUNCHES
+        for k in range(3):
+            assert torch.equal(got[k], want[k]), (a, k)
+        nbits = int(want[4])
+        assert int(got[4]) == nbits and not bool(got[7]) and not bool(want[7])
+        nw = (nbits + 31) // 32
+        assert torch.equal(got[3][:nw], want[3][:nw]), a
+        assert (int(got[5]), int(got[6])) == (want[5], want[6])
+        assert got[8].tolist() == want[8].tolist() and got[9].tolist() == want[9]
+        core, prog = (want[:3], want[5], want[6]), (got[:3], got[5], got[6])
+        positions += want[9]
+    return positions
+
+
+@pytest.mark.parametrize("w,h,pframes,i0", [(1920, 1152, 23, 21), (720, 576, 11, 9),
+                                            (1920, 1152, 0, 0), (720, 576, 0, 0)])
+def test_graph_carry_me_pack_chunks_equal_core(dev, w, h, pframes, i0):
+    """Chunks of 5 and 4 frames at 1920x1152 (pframes 23) and 720x576
+    (pframes 11), starting two frames before a GOP's end so that each
+    crosses a GOP boundary, and I-frame-only chunks (pframes 0), through the
+    gop program's graph equal the eager core: the recon written in place,
+    the GOP position read by F as it stands and the carry kernel's GOP
+    state, per-frame outputs and sequence bits; the second call takes the
+    first call's outputs as its recon, GOP position and frame number."""
+    graphs.clear()
+    positions = _gop_chunks(dev, w, h, pframes, i0, ((0, 5), (5, 9)), w + pframes)
+    assert positions == [(i0 + k) % (pframes + 1) for k in range(9)]
+    assert positions[:5].count(0) == (5 if pframes == 0 else 1)
+    graphs.clear()
+
+
+@pytest.mark.parametrize("pframes,cut", [(1, 1), (0, 2)])
+def test_graph_carry_me_pack_stream_equals_golden(dev, pframes, cut):
+    """720x576 streams (vector level 2) through push_chunk, the gop
+    program's graph, equal the golden model's: a frame, then 3 frames that
+    cross a GOP boundary (I | P I P), and 2 I-frames in one chunk."""
+    w, h, n = 720, 576, 4 if pframes else 2
+    cfg = EncoderConfig(xl=6, yl=6, vector_level=2, q_level=2)
+    frames = video(57, w, h, n)
+    enc = Encoder(cfg, *M.bound_caps(w, h), device=dev)
+    enc.start_sequence(SequenceConfig(w, h, pframes))
+    _build.reset_launches()
+    enc.push_chunk(frames[:cut])
+    if cut < n:
+        enc.push_chunk(frames[cut:])
+    got = enc.finish()
+    assert _build.LAUNCHES["gop_carry"] == n
+    assert got == G.encode_sequence(cfg, SequenceConfig(w, h, pframes), frames)
+
+
+@pytest.mark.parametrize("over", ["row", "frame"])
+def test_graph_carry_overflow_retry_at_small_caps(dev, over):
+    """A row over its cap, or a frame over its cap, sets the gop program's
+    overflow flag as it sets the eager core's, and Encoder's retry at the
+    bounds then gives the CPU encoder's stream."""
+    w, h = 416, 64
+    row_cap, frame_cap = M.bound_caps(w, h)
+    caps = dict(row_cap=64, frame_cap=frame_cap) if over == "row" else \
+        dict(row_cap=row_cap, frame_cap=256)
+    kw = dict(yr=6, ur=3, q_level=2, seq_cap=frame_cap * 4, **caps)
+    stacks = _stacks(dev, w, h, 4, 23, "noise")
+    zy = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev)
+    want = M.encode_gop_scan_core(*stacks, zy, zc, zc, 0, 0, 2, **kw)
+    got = M.encode_gop_scan(*stacks, zy, zc, zc, 0, 0, 2, **kw)
+    assert bool(got[7]) is bool(want[7]) is True
+    assert got[8].tolist() == want[8].tolist() and int(got[4]) == int(want[4])
+    cfg, frames = EncoderConfig(xl=5, yl=4), video(29, w, h, 8, "noise")
+    profiling.COUNTS.clear()
+    stream = Encoder(cfg, device=dev, **caps).encode(frames, w, h, 2, chunk_frames=4)
+    assert profiling.COUNTS["overflow_retries"] == 2
+    assert stream == Encoder(cfg, device="cpu", **caps).encode(frames, w, h, 2, chunk_frames=4)
+
+
+def test_graph_carry_me_pack_replay_device_ops(dev, tmp_path):
+    """A replay of the gop program's step is 9 device operations in the
+    profiler's trace, those inside its ``replay.gop`` span on the device:
+    the seven stage kernels, the header rows' cat and the carry kernel; no
+    copy, fill or small elementwise kernel.  Four replays are traced, and
+    the fullest is held to that (the profiler now and then drops some of a
+    short window's events), none with more."""
+    graphs.clear()
+    stacks = _stacks(dev, 416, 64, 2, 5)
+    zy = torch.zeros((64, 416), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((32, 208), dtype=torch.uint8, device=dev)
+    M.encode_gop_scan(*stacks, zy, zc, zc, 0, 0, 2, yr=6, ur=3, q_level=2, row_cap=4096,
+                      frame_cap=65536, seq_cap=262144)
+    (prog,) = [p for k, p in graphs._programs.items() if k[0] == "gop"]
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(4):
+            prog.step()
+        torch.cuda.synchronize()
+    path = tmp_path / "replays.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "gpu_user_annotation" and e.get("name") == "replay.gop"]
+    ops = [(e["ts"], e["name"].replace("(anonymous namespace)::", "").split("(")[0])
+           for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    per_replay = [sorted(n for t, n in ops if a <= t <= b) for a, b in spans]
+    assert per_replay and all(len(r) <= 9 for r in per_replay), per_replay
+    fullest = max(per_replay, key=len)
+    assert len(fullest) == 9, per_replay
+    for name in ("subsample_kernel", "me_fused_kernel", "transform_kernel", "glue_kernel",
+                 "CatArrayBatchedCopy", "acsym_kernel", "pack_slots_kernel",
+                 "merge_rows_kernel", "gop_carry_kernel"):
+        assert sum(name in op for op in fullest) == 1, (name, fullest)
+    graphs.clear()

@@ -7,7 +7,10 @@ against JAX encode_gop_scan and encode_frame_device in every output, with
 the GOP position and the frame number as device values: the header rows
 from 0-d tensors, the motion stage's I/P flag as a tensor, a 416 px wide
 chunk of fewer than 8 frames whose timecode rolls over (frame 1439 -> 1440)
-and whose GOP wraps.  Also the launch ledger's arithmetic under replay and
+and whose GOP wraps.  The gop program's carry (ops/kernels/carry.py, its
+plain version here) against the operations the step ran before it and
+against the GOP rules, and encode_gop_scan against the eager
+encode_gop_scan_core.  Also the launch ledger's arithmetic under replay and
 the program cache.  All equality is exact.
 """
 import numpy as np
@@ -23,8 +26,10 @@ from fpga_mpeg2_encoder_tpu.ops import entropy as jentropy
 from fpga_mpeg2_encoder_tpu_torch.models import encoder as M
 from fpga_mpeg2_encoder_tpu_torch.ops import entropy, motion
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
+from fpga_mpeg2_encoder_tpu_torch.ops.kernels import carry as k_carry
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
+from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
 from fpga_mpeg2_encoder_tpu_torch.runtime import graphs
 from fpga_mpeg2_encoder_tpu_torch.utils.testdata import video
 
@@ -77,6 +82,33 @@ def test_motion_with_tensor_flag_equals_bool(flag, is_i):
     luma = motion.estimate_luma(cur, motion.pad_halo(prev, 8), t, 6, 0, 4)
     assert all(torch.equal(a, b) for a, b in zip(
         luma, motion.estimate_luma(cur, motion.pad_halo(prev, 8), is_i, 6, 0, 4)))
+
+
+@pytest.mark.parametrize("position", [0, 3])
+def test_motion_position_and_recon_out_on_cpu(position):
+    """On CPU tensors, the gop program's two operands of its stages:
+    motion_estimate_fused with the GOP position equals the call with the
+    I/P flag it stands for, and refuses both or neither; transform_recon
+    with ``out`` fills and returns the given planes, equal to new ones, and
+    refuses an input as an output."""
+    f0, f1 = video(5, 64, 64, 2, "pan")
+    cur, prev = torch.from_numpy(f1[0]), torch.from_numpy(f0[0])
+    pc = torch.from_numpy(f0[1][::2, ::2].copy())
+    got = k_me.motion_estimate_fused(cur, prev, pc, pc, None, 6, 3, as_plane=True,
+                                     position=_i32(position))
+    want = k_me.motion_estimate_fused(cur, prev, pc, pc, position == 0, 6, 3, as_plane=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for bad in (dict(is_iframe=True, position=_i32(0)), dict(is_iframe=None)):
+        with pytest.raises(ValueError, match="one of"):
+            k_me.motion_estimate_fused(cur, prev, pc, pc, yr=6, ur=3, **bad)
+    inter, _, _, py, pu, pv = got
+    args = (cur, pc, pc, py, pu, pv, inter, 2)
+    out = (torch.full_like(cur, 7), torch.full_like(pc, 7), torch.full_like(pc, 7))
+    new, into = k_tf.transform_recon(*args), k_tf.transform_recon(*args, out=out)
+    assert all(a is b for a, b in zip(into[1:], out))
+    assert all(torch.equal(a, b) for a, b in zip(new, into))
+    with pytest.raises(ValueError, match="input"):
+        k_tf.transform_recon(*args, out=(out[0], pc, out[2]))
 
 
 @pytest.mark.parametrize("i_frame0,frame_no0,pframes", [(2, 1438, 2), (0, 0, 23)])
@@ -142,7 +174,7 @@ def test_launch_ledger_counts_replays():
     tally = {}
     with _build.tally_into(tally):
         for name in ("subsample", "me_fused", "transform", "glue", "acsym", "pack_slots",
-                     "merge_rows"):
+                     "merge_rows", "gop_carry"):
             _build.count(name)
         _build.count("pack_slots")
         with pytest.raises(RuntimeError, match="nest"):
@@ -150,13 +182,13 @@ def test_launch_ledger_counts_replays():
                 pass
     assert sum(_build.LAUNCHES.values()) == 0
     assert tally == {"subsample": 1, "me_fused": 1, "transform": 1, "glue": 1, "acsym": 1,
-                     "pack_slots": 2, "merge_rows": 1}
+                     "pack_slots": 2, "merge_rows": 1, "gop_carry": 1}
     for _ in range(3):
         _build.add_launches(tally)
     _build.add_launches(tally, times=4)
     assert _build.LAUNCHES == {"subsample": 7, "me_fused": 7, "transform": 7, "glue": 7,
                                "acsym": 7, "pack_slots": 14, "merge_rows": 7, "me_luma": 0,
-                               "chroma_pred": 0}
+                               "chroma_pred": 0, "gop_carry": 7}
     _build.count("me_luma")
     assert _build.LAUNCHES["me_luma"] == 1
     _build.reset_launches()
@@ -224,3 +256,85 @@ def test_pack_lookback_buffers_are_never_freed(monkeypatch):
     assert k_pack._lookback_buffer(dev, 100)[0] is b
     c, cap_c = k_pack._lookback_buffer(dev, 5000)
     assert cap_c == 5000 and [x is y for x, y in zip(k_pack._retired, (a, b))] == [True, True]
+
+
+def _carry_before(row_bits, row_cap, fbits, frame_ovf, new_bits, state, per_frame):
+    """The operations of the gop program's step that the carry kernel
+    replaced, as the step ran them: P's overflow flag, the GOP advance, the
+    overflow ORs, the two scatters, the copies of the carry and k's add."""
+    seq_bits, overflow, i_frame, pframes, frame_no, k = state
+    pack_ovf = (row_bits > 32 * row_cap).any()
+    i_next = torch.where(i_frame >= pframes, 0, i_frame + 1)
+    ovf, fno = overflow | pack_ovf | frame_ovf, frame_no + 1
+    per_frame[0].scatter_(0, k, fbits.view(1))
+    per_frame[1].scatter_(0, k, i_frame.view(1))
+    for dst, src in zip((seq_bits, overflow, i_frame, frame_no), (new_bits, ovf, i_next, fno)):
+        dst.copy_(src)
+    k.add_(1)
+
+
+@pytest.mark.parametrize("over", ["row", "frame", "none"])
+@pytest.mark.parametrize("k", [0, 63])
+@pytest.mark.parametrize("i_frame,pframes", [(2, 2), (1, 2), (0, 2), (0, 0)])
+def test_carry_plain_equals_the_steps_ops(i_frame, pframes, k, over):
+    """The carry's plain version equals the operations it replaced, and the
+    GOP rules: the wrap at i_frame = pframes (and every frame an I-frame at
+    pframes 0), the per-frame outputs written at k = 0 and at the last
+    index, the overflow from one of P's rows (row 40, past the first 32),
+    from M's frame bits, or from neither."""
+    row_cap, frames_cap = 16, 64
+    row_bits = torch.full((74,), 32 * row_cap, dtype=torch.int64)
+    row_bits[40] += 8 if over == "row" else 0
+    merge = (torch.tensor(3000, dtype=torch.int64), torch.tensor(over == "frame"),
+             torch.tensor(12345 + 3000, dtype=torch.int64))
+
+    def state():
+        return ((torch.tensor(12345, dtype=torch.int64), torch.tensor(False), _i32(i_frame),
+                 _i32(pframes), _i32(1439), torch.tensor([k], dtype=torch.int64)),
+                (torch.full((frames_cap,), -1, dtype=torch.int64),
+                 torch.full((frames_cap,), -1, dtype=torch.int32)))
+
+    got, want = state(), state()
+    k_carry.gop_carry(row_bits, row_cap, *merge, *got)
+    _carry_before(row_bits, row_cap, *merge, *want)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    seq_bits, overflow, i_next, _, fno, k_next = got[0]
+    assert int(seq_bits) == 15345 and bool(overflow) is (over != "none")
+    assert int(i_next) == (0 if i_frame >= pframes else i_frame + 1)
+    assert (int(fno), int(k_next)) == (1440, k + 1)
+    assert int(got[1][0][k]) == 3000 and int(got[1][1][k]) == i_frame
+    assert int((got[1][0] != -1).sum()) == int((got[1][1] != -1).sum()) == 1
+
+
+@pytest.mark.parametrize("case", ["wrap", "intra", "row_over", "frame_over"])
+def test_encode_gop_scan_equals_core(case):
+    """encode_gop_scan on the CPU (its step with the carry's plain version,
+    the recon written into the program's planes) equals the eager
+    encode_gop_scan_core in all ten outputs over two calls, the second fed
+    the first's recon, GOP position and frame number: across a GOP boundary
+    (pframes 2 from position 1), every frame an I-frame (pframes 0), and
+    with a row or the frame over its cap (the overflow flag set)."""
+    w, h = 64, 64
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=1024, frame_cap=16384, seq_cap=65536)
+    kw.update({"row_over": dict(row_cap=8), "frame_over": dict(frame_cap=64)}.get(case, {}))
+    pframes = 0 if case == "intra" else 2
+    frames = video(77, w, h, 7, "noise" if case.endswith("over") else "pan")
+    stacks = [torch.from_numpy(np.stack([f[i] for f in frames])) for i in range(3)]
+    zy, zc = torch.zeros((h, w), dtype=torch.uint8), torch.zeros((h // 2, w // 2),
+                                                                 dtype=torch.uint8)
+    core = prog = ((zy, zc, zc), 1 if pframes else 0, 1438)
+    graphs.clear()
+    for a, b in ((0, 4), (4, 7)):
+        chunk = [t[a:b] for t in stacks]
+        want = M.encode_gop_scan_core(*chunk, *core[0], core[1], core[2], pframes, **kw)
+        got = M.encode_gop_scan(*chunk, *prog[0], prog[1], prog[2], _i32(pframes), **kw)
+        for k in range(3):
+            assert torch.equal(got[k], want[k]), (a, k)
+        assert torch.equal(got[3], want[3]) and int(got[4]) == int(want[4])
+        assert (int(got[5]), int(got[6])) == (want[5], want[6]) == (
+            (core[1] + b - a) % (pframes + 1), core[2] + b - a)
+        assert bool(got[7]) is bool(want[7]) is case.endswith("over")
+        assert got[8].tolist() == want[8].tolist() and got[9].tolist() == want[9]
+        core, prog = (want[:3], want[5], want[6]), (got[:3], got[5], got[6])
+    graphs.clear()
