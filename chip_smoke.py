@@ -130,10 +130,10 @@ SEQ_CAP = 8388608
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64        # Hopper SM: 64 INT32 lanes per clock
 # byte-SIMD __vsadu4 (SASS VABSDIFF4): four absolute-difference adds.  Its
-# rate, measured by fpga_mpeg2_encoder_tpu_torch/tools/vabsdiff4_rate.py on an
-# H100 at 700 W, is 61.5-62.1 lanes per clock per SM with the loop's own
-# instructions issued beside it: the full INT32 rate, so the ME's bound uses
-# the INT32 peak.
+# rate, measured on an H100 at 700 W (CHANGES.md, the entry on the motion
+# kernel's redesign for the H100), is 61.4-62.1 lanes per clock per SM with
+# the loop's own instructions issued beside it: the full INT32 rate, so the
+# ME's bound uses the INT32 peak.
 SAD_PER_OP = 4
 WORD_BYTES = 4                 # packed words are 32-bit values, carried as int64 for
                                # the CPU's plain code; the bounds of P, S and M count 4 bytes
@@ -391,8 +391,7 @@ def main():
     sys.path.insert(0, root)
     from bench import PAYLOAD_SHA256, make_frames
     from fpga_mpeg2_encoder_tpu_torch import Encoder, EncoderConfig
-    from fpga_mpeg2_encoder_tpu_torch.core.bitstream import (
-        SEQUENCE_END_CHUNKS, BitWriter, sequence_header_chunks)
+    from fpga_mpeg2_encoder_tpu_torch.core.bitstream import sequence_end, sequence_start
     from fpga_mpeg2_encoder_tpu_torch.models import encoder as M
     from fpga_mpeg2_encoder_tpu_torch.ops import bitpack, colorspace, dct, entropy, motion
     from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
@@ -708,7 +707,7 @@ def main():
         return counts
 
     def check_payload(tag, sw, sbits):
-        payload = M.words_to_bytes(sw[: (sbits + 31) // 32].cpu().numpy(), sbits)
+        payload = M.payload_bytes(sw, sbits)
         digest = hashlib.sha256(payload).hexdigest()
         if digest != PAYLOAD_SHA256:
             raise AssertionError(f"{tag}: payload digest {digest} != {PAYLOAD_SHA256}")
@@ -750,9 +749,7 @@ def main():
     if len(stream) != SOAK_BYTES or digest != SOAK_SHA256:
         raise AssertionError(f"5b: stream {len(stream)} bytes sha256 {digest}, "
                              f"expected {SOAK_BYTES} bytes {SOAK_SHA256}")
-    bw = BitWriter()
-    bw.put_chunks(sequence_header_chunks(W, H))
-    hl = len(bw.to_bytes_aligned())
+    hl = len(sequence_start(W, H))
     body = stream.rstrip(b"\x00")
     if not (stream[:4] == b"\x00\x00\x01\xb3"
             and stream[hl:hl + 4] == b"\x00\x00\x01\xb8"
@@ -815,8 +812,9 @@ def main():
 
     def batch_loop(nf=nf7):
         return encode_gops_batched(*(t[:, :nf] for t in stacks), zb, zbc, zbc, [0] * ns,
-                                   [0] * ns, 23, **kw, **CAPS,
-                                   seq_cap=CAPS["frame_cap"] * max(1, nf // 4))
+                                   [0] * ns, 23, **kw,
+                                   **M.chunk_caps(CAPS["row_cap"], CAPS["frame_cap"], W, H,
+                                                  nf)[0])
 
     loop_ms = cuda_ms(batch_loop, reps=1, warmup=1)
     # the profiler's cost grows with its events: profile 4 frames a stream,
@@ -1071,19 +1069,13 @@ def main():
 
     # phase 7's BatchEncoder streams (graph replays) against each stream
     # encoded by the eager encode_gop_scan_core
-    bw = BitWriter()
-    bw.put_chunks(sequence_header_chunks(W, H))
-    head = bw.to_bytes_aligned()
-    bw = BitWriter()
-    bw.put_chunks(SEQUENCE_END_CHUNKS)
-    end = bw.to_bytes_aligned()
     for b in range(ns):
         st = [torch.as_tensor(np.stack([f[i] for f in chunks[b]]), device=dev) for i in range(3)]
-        o = M.encode_gop_scan_core(*st, zy, zc, zc, 0, 0, 23, **kw, **CAPS,
-                                   seq_cap=CAPS["frame_cap"] * max(1, nf7 // 4))
-        data = head + M.words_to_bytes(o[3][:(int(o[4]) + 31) // 32].cpu().numpy(),
-                                       int(o[4])) + end
-        data += b"\x00" * ((len(data) // 32 + 1) * 32 - len(data))
+        o = M.encode_gop_scan_core(*st, zy, zc, zc, 0, 0, 23, **kw,
+                                   **M.chunk_caps(CAPS["row_cap"], CAPS["frame_cap"], W, H,
+                                                  nf7)[0])
+        data = sequence_start(W, H) + M.payload_bytes(o[3], int(o[4]))
+        data += sequence_end(len(data))
         if bool(o[7]) or streams7[b] != data:
             raise AssertionError(f"11e: BatchEncoder stream {b} != its eager encode")
     progs = sorted({(k[0], k[2], k[3]) for k in graphs._programs
@@ -1105,7 +1097,7 @@ def main():
             ry, ru, rv, fw, fb, _ = fn(fy[k], fu[k], fv[k], *prev, 0 if k == 0 else 1, k,
                                        **ckw)
             nb = int(fb)
-            total += len(M.words_to_bytes(fw[:(nb + 31) // 32].cpu().numpy(), nb))
+            total += len(M.payload_bytes(fw, nb))
             prev = (ry.clone(), ru.clone(), rv.clone())
         return (time.perf_counter() - t0) * 1e3 / n, total
 

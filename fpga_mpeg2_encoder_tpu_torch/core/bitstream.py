@@ -124,3 +124,22 @@ class BitWriter:
         """Current content, byte-aligned, without end-of-sequence padding."""
         self.align()
         return bytes(self._buf)
+
+
+def sequence_start(width: int, height: int) -> bytes:
+    """The bytes that start a sequence: its header and extensions,
+    byte-aligned."""
+    bw = BitWriter()
+    bw.put_chunks(sequence_header_chunks(width, height))
+    return bw.to_bytes_aligned()
+
+
+def sequence_end(length: int) -> bytes:
+    """The bytes that close a sequence of ``length`` bytes so far: the end
+    code, then zero bytes up to the next multiple of 32, 32 of them where the
+    end code ends on one (``BitWriter.finish_sequence``)."""
+    bw = BitWriter()
+    bw.put_chunks(SEQUENCE_END_CHUNKS)
+    end = bw.to_bytes_aligned()
+    n = length + len(end)
+    return end + bytes((n // 32 + 1) * 32 - n)

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..config import EncoderConfig, SequenceConfig
-from ..core.bitstream import BitWriter, SEQUENCE_END_CHUNKS, sequence_header_chunks
+from ..core.bitstream import sequence_end, sequence_start
 from ..ops import entropy
 from ..ops.kernels import carry as k_carry
 from ..ops.kernels import colorspace as k_colorspace
@@ -88,6 +88,12 @@ def encode_frame_core(y444, u444, v444, prev_y, prev_u, prev_v,
     return recon_y, recon_u, recon_v, fwords, fbits, pack_ovf | (fbits > 32 * frame_cap)
 
 
+def next_i_frame(i_frame: int, pframes_count: int) -> int:
+    """The next frame's GOP position: an I-frame (0) after ``pframes_count``
+    P-frames, else one further."""
+    return 0 if i_frame >= pframes_count else i_frame + 1
+
+
 def _gop_step(carry, frame, pframes_count: int, *, yr: int, ur: int, q_level: int,
               row_cap: int, frame_cap: int):
     """One frame of encode_gop_scan_core, JAX's scan ``step``: carry (prev
@@ -102,8 +108,8 @@ def _gop_step(carry, frame, pframes_count: int, *, yr: int, ur: int, q_level: in
     # the frame's rows straight into the sequence buffer: one launch
     seq_w, seq_b, fb, frame_ovf = k_pack.merge_append(seq_w, seq_b, row_words, row_bits,
                                                       frame_cap)
-    i_next = 0 if i_f >= pframes_count else i_f + 1
-    return ((ry, ru, rv), seq_w, seq_b, ovf | pack_ovf | frame_ovf, i_next, fno + 1), (fb, i_f)
+    return ((ry, ru, rv), seq_w, seq_b, ovf | pack_ovf | frame_ovf,
+            next_i_frame(i_f, pframes_count), fno + 1), (fb, i_f)
 
 
 def encode_gop_scan_core(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
@@ -328,10 +334,38 @@ def encode_gop_scan(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
 
 def bound_caps(width: int, height: int) -> Tuple[int, int]:
     """(row_cap, frame_cap) that no frame of width x height can overflow:
-    entropy's analytic bounds.  The overflow retry encodes at these caps, a
-    chunk of n frames with seq_cap = n * frame_cap."""
+    entropy's analytic bounds."""
     nbx, nby = width // 16, height // 16
     return entropy.slice_words_bound(nbx), entropy.frame_words_bound(nbx, nby)
+
+
+def chunk_caps(row_cap: int, frame_cap: int, width: int, height: int,
+               n: int) -> Tuple[dict, dict]:
+    """An n-frame chunk's caps, ``row_cap``, ``frame_cap`` and ``seq_cap``:
+    at the given row and frame caps with a sequence cap of a quarter of the
+    chunk's frame caps (at least one), as the JAX package sizes it; then at
+    ``bound_caps``, with a sequence cap of every frame at its bound, which
+    nothing can overflow.  A single frame is a chunk of one, whose program
+    takes no sequence cap."""
+    bound_row, bound_frame = bound_caps(width, height)
+    return (dict(row_cap=row_cap, frame_cap=frame_cap, seq_cap=frame_cap * max(1, n // 4)),
+            dict(row_cap=bound_row, frame_cap=bound_frame, seq_cap=bound_frame * n))
+
+
+def within_bounds(attempt, caps: Tuple[dict, dict], what: str):
+    """The overflow retry: ``attempt(c)`` encodes at the caps ``c`` and
+    returns its result, or None where the encode overflowed.  Runs it at
+    ``caps[0]``; on an overflow counts ``overflow_retries`` and runs it
+    again at ``caps[1]`` (``chunk_caps``' bounds), and raises if even that
+    overflows.  ``what`` names the unit ("frame", "chunk") in the error."""
+    result = attempt(caps[0])
+    if result is None:
+        # rare: the encode exceeded the caps; encode it again at the bounds
+        count("overflow_retries")
+        result = attempt(caps[1])
+        if result is None:
+            raise RuntimeError(f"{what} exceeded the analytic worst-case buffer bound")
+    return result
 
 
 def resolve_device(device) -> torch.device:
@@ -350,8 +384,18 @@ def words_to_bytes(words: np.ndarray, nbits: int) -> bytes:
     return np.asarray(words).astype(">u4").tobytes()[: (nbits + 7) // 8]
 
 
-def _download_payload(words: torch.Tensor, nbits: int) -> bytes:
+def payload_bytes(words: torch.Tensor, nbits: int) -> bytes:
+    """The payload's bytes: the first ``nbits`` bits of ``words``, 32-bit
+    words in stream order held in int64, on any device.  Only the words
+    that hold those bits are sliced, where the words lie, and copied to the
+    host."""
     return words_to_bytes(words[: (nbits + 31) // 32].cpu().numpy(), nbits)
+
+
+def upload(array, dev) -> torch.Tensor:
+    """``array`` as a uint8 tensor on ``dev``; torch wants writable host
+    memory (JAX hands out read-only arrays)."""
+    return torch.as_tensor(np.require(array, np.uint8, ["W"]), device=dev)
 
 
 def _host_tensor(plane) -> torch.Tensor:
@@ -431,7 +475,7 @@ class _Staging:
             self.words = torch.empty(1 << (n - 1).bit_length(), dtype=torch.int64,
                                      pin_memory=self._pin)
         self.words[:n].copy_(words[:n])
-        return words_to_bytes(self.words[:n].numpy(), nbits)
+        return payload_bytes(self.words, nbits)
 
 
 class Encoder:
@@ -495,9 +539,7 @@ class Encoder:
             raise RuntimeError("sequence already active; call finish() first")
         seq = seq.validate(self.config)
         self._seq = seq
-        bw = BitWriter()
-        bw.put_chunks(sequence_header_chunks(seq.width, seq.height))
-        self._payload: List[bytes] = [bw.to_bytes_aligned()]
+        self._payload: List[bytes] = [sequence_start(seq.width, seq.height)]
         self._i_frame = 0
         self._frame_no = 0
         self._prev = None
@@ -530,7 +572,7 @@ class Encoder:
         if state.recon_y is None:
             self._prev = None
         else:
-            self._prev = tuple(self._upload(p) for p in
+            self._prev = tuple(upload(p, self.device) for p in
                                (state.recon_y, state.recon_u, state.recon_v))
         self.stats = SequenceStats(width=state.width, height=state.height)
 
@@ -544,16 +586,8 @@ class Encoder:
     def _kw(self):
         return dict(yr=self.config.yr, ur=self.config.ur, q_level=self.config.q_level)
 
-    def _upload(self, plane) -> torch.Tensor:
-        # torch wants writable host memory (JAX hands out read-only arrays)
-        return torch.as_tensor(np.require(plane, np.uint8, ["W"]), device=self.device)
-
     def _zero_prev(self):
-        seq = self._seq
-        z = torch.zeros((seq.height, seq.width), dtype=torch.uint8, device=self.device)
-        zc = torch.zeros((seq.height // 2, seq.width // 2), dtype=torch.uint8,
-                         device=self.device)
-        return (z, zc, zc)
+        return _planes(self.device, self._seq.height, self._seq.width, 2)
 
     def _check_frame_shape(self, frame, seq) -> None:
         """Reject frames that don't match the LATCHED sequence geometry with a
@@ -585,35 +619,33 @@ class Encoder:
             if self._prev is None:
                 self._prev = self._zero_prev()
             with span("push_frame.upload", first):
-                planes = tuple(self._upload(p) for p in (y, u, v))
+                planes = tuple(upload(p, self.device) for p in (y, u, v))
             args = (*planes, *self._prev, self._i_frame, self._frame_no)
-            caps = dict(row_cap=self.row_cap, frame_cap=self.frame_cap)
-            for retry in (False, True):
+
+            def attempt(caps):
                 with span("push_frame.program", first):
-                    ry, ru, rv, fw, fb, ovf = encode_frame_device(*args, **self._kw(), **caps)
+                    ry, ru, rv, fw, fb, ovf = encode_frame_device(
+                        *args, **self._kw(), row_cap=caps["row_cap"],
+                        frame_cap=caps["frame_cap"])
                 with span("push_frame.sync", first):
                     count("host_syncs")
-                    overflowed = bool(ovf)
-                    if not overflowed:
-                        count("host_syncs")
-                        nbits = int(fb)
-                if not overflowed:
-                    break
-                if retry:
-                    raise RuntimeError("frame exceeded the analytic worst-case buffer bound")
-                # rare: the frame exceeded the caps; encode it again at the bounds
-                count("overflow_retries")
-                caps = dict(zip(("row_cap", "frame_cap"), bound_caps(seq.width, seq.height)))
+                    if bool(ovf):
+                        return None
+                    count("host_syncs")
+                    return ry, ru, rv, fw, int(fb)
+            ry, ru, rv, fw, nbits = within_bounds(
+                attempt, chunk_caps(self.row_cap, self.frame_cap, seq.width, seq.height, 1),
+                "frame")
             with span("push_frame.download", first):
                 count("host_syncs")
-                payload = _download_payload(fw, nbits)
+                payload = payload_bytes(fw, nbits)
             with span("push_frame.carry", first):
                 # the program's outputs are rewritten by its next call
                 self._prev = (ry.clone(), ru.clone(), rv.clone())
                 self._payload.append(payload)
                 self.stats.add(index=self._frame_no, i_frame=self._i_frame, bits=nbits,
                                wall_s=time.perf_counter() - t_start)
-                self._i_frame = 0 if self._i_frame >= seq.pframes_count else self._i_frame + 1
+                self._i_frame = next_i_frame(self._i_frame, seq.pframes_count)
                 self._frame_no += 1
 
     def push_chunk(self, frames: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]]
@@ -642,34 +674,26 @@ class Encoder:
                 with span("push_chunk.stack", first):
                     host = [np.stack([np.asarray(f[i]) for f in frames]) for i in range(3)]
                 with span("push_chunk.upload", first):
-                    stacks = [self._upload(h) for h in host]
+                    stacks = [upload(h, self.device) for h in host]
             args = (*stacks, *self._prev, self._i_frame, self._frame_no, seq.pframes_count)
-            caps = dict(row_cap=self.row_cap, frame_cap=self.frame_cap,
-                        seq_cap=self.frame_cap * max(1, len(frames) // 4))
-            for retry in (False, True):
+
+            def attempt(caps):
                 with span("push_chunk.program", first):
                     ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gop_scan(
                         *args, **self._kw(), **caps)
                 with span("push_chunk.sync", first):
                     count("host_syncs")
-                    overflowed = bool(ovf)
-                    if not overflowed:
-                        count("host_syncs", 5)
-                        nbits, bits, i_frames = int(sb), fbits.tolist(), fifs.tolist()
-                        i_next, fno_next = int(i_f), int(fno)
-                if not overflowed:
-                    break
-                if retry:
-                    raise RuntimeError("chunk exceeded the analytic worst-case buffer bound")
-                # rare: some frame or the chunk exceeded the caps; encode the
-                # chunk again at the bounds
-                count("overflow_retries")
-                row_cap, frame_cap = bound_caps(seq.width, seq.height)
-                caps = dict(row_cap=row_cap, frame_cap=frame_cap,
-                            seq_cap=frame_cap * len(frames))
+                    if bool(ovf):
+                        return None
+                    count("host_syncs", 5)
+                    return (ry, ru, rv, sw, int(sb), fbits.tolist(), fifs.tolist(), int(i_f),
+                            int(fno))
+            ry, ru, rv, sw, nbits, bits, i_frames, i_next, fno_next = within_bounds(
+                attempt, chunk_caps(self.row_cap, self.frame_cap, seq.width, seq.height,
+                                    len(frames)), "chunk")
             with span("push_chunk.download", first):
                 count("host_syncs")
-                payload = (_download_payload(sw, nbits) if staging is None
+                payload = (payload_bytes(sw, nbits) if staging is None
                            else staging.download(sw, nbits))
             with span("push_chunk.carry", first):
                 # the program's outputs are rewritten by its next call
@@ -689,12 +713,8 @@ class Encoder:
         (RTL:1048-1058, 1070-1079).  Mid-frame stops are expressed by pushing a
         partially-fed frame (``encode(stop_mode='partial')``)."""
         self._require_seq()
-        bw = BitWriter()
-        bw.put_chunks(SEQUENCE_END_CHUNKS)
-        self._payload.append(bw.to_bytes_aligned())
         data = b"".join(self._payload)
-        target = (len(data) // 32 + 1) * 32
-        data = data + b"\x00" * (target - len(data))
+        data += sequence_end(len(data))
         self._seq = None
         self._reset_sequence_state()
         return data

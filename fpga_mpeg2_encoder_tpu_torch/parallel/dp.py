@@ -21,8 +21,9 @@ batch functions' spans (``batch.*``) and counters are listed in
 
 Unlike the JAX package there is no statistical level budget (``budget_bps``):
 a row overflows exactly when its bits exceed 32 * row_cap, and an
-overflowing batch is encoded again at ``models.encoder.bound_caps``, as
-``Encoder`` encodes an overflowing frame.
+overflowing batch is encoded again, every stream of it, at
+``models.encoder.bound_caps`` through ``Encoder``'s overflow retry
+(``models.encoder.within_bounds``, which counts it in ``overflow_retries``).
 """
 from __future__ import annotations
 
@@ -34,15 +35,18 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import EncoderConfig, SequenceConfig
-from ..core.bitstream import BitWriter, SEQUENCE_END_CHUNKS, sequence_header_chunks
+from ..core.bitstream import sequence_end, sequence_start
 from ..models.encoder import (
     DEFAULT_FRAME_CAP,
     DEFAULT_ROW_CAP,
-    bound_caps,
+    chunk_caps,
     encode_frame_device,
     encode_gop_scan,
+    next_i_frame,
+    payload_bytes,
     resolve_device,
-    words_to_bytes,
+    upload,
+    within_bounds,
 )
 from ..utils.profiling import count, span
 from .mesh import local_range
@@ -137,37 +141,41 @@ class BatchEncoder:
                       zc, zc.clone())
         self._i_frame = [0] * n
         self._frame_no = [0] * n
-        bw = BitWriter()
-        bw.put_chunks(sequence_header_chunks(self.seq.width, self.seq.height))
-        hdr = bw.to_bytes_aligned()
+        hdr = sequence_start(self.seq.width, self.seq.height)
         self._payload: List[List[bytes]] = [[hdr] for _ in range(n)]
 
     def _kw(self):
         return dict(yr=self.config.yr, ur=self.config.ur, q_level=self.config.q_level)
 
-    def _upload(self, stack: np.ndarray) -> torch.Tensor:
-        want = (self.seq.height, self.seq.width)
+    def _caps(self, n: int):
+        return chunk_caps(self.row_cap, self.frame_cap, self.seq.width, self.seq.height, n)
+
+    def _stack(self, planes) -> torch.Tensor:
+        """One plane of each of this process's streams, stacked on the
+        device; planes from outside must have the sequence's geometry and
+        be uint8."""
+        stack, want = np.stack(planes), (self.seq.height, self.seq.width)
         if stack.shape[-2:] != want or stack.dtype != np.uint8:
             raise ValueError(f"frames of {stack.shape[-2:]} {stack.dtype}, the sequence "
                              f"takes {want} uint8")
-        return torch.as_tensor(stack, device=self.device)
+        return upload(stack, self.device)
 
     def _frames(self, frames: List[Frame]):
         """This process's streams' frames as three (B_l, H, W) device stacks."""
-        return tuple(self._upload(np.stack([frames[b][i] for b in self.streams]))
-                     for i in range(3))
+        return tuple(self._stack([frames[b][i] for b in self.streams]) for i in range(3))
 
     def _chunks(self, chunks: List[List[Frame]]):
         """This process's streams' chunks as three (B_l, F, H, W) device stacks."""
-        return tuple(self._upload(np.stack([np.stack([f[i] for f in chunks[b]])
-                                            for b in self.streams])) for i in range(3))
+        return tuple(self._stack([np.stack([f[i] for f in chunks[b]]) for b in self.streams])
+                     for i in range(3))
 
     def _append_payloads(self, words: torch.Tensor, bits: torch.Tensor) -> None:
-        """Each stream's (B_l, N) words up to its bits, in one download."""
+        """Each stream's (B_l, N) words up to its bits, in one download of
+        the longest stream's words."""
         bits_h = bits.tolist()
-        host = words[:, :(max(bits_h) + 31) // 32].cpu().numpy()
+        host = words[:, :(max(bits_h) + 31) // 32].cpu()
         for j, nbits in enumerate(bits_h):
-            self._payload[j].append(words_to_bytes(host[j, :(nbits + 31) // 32], nbits))
+            self._payload[j].append(payload_bytes(host[j], nbits))
 
     def _check_batch(self, items: Sequence) -> None:
         if len(items) != self.batch:
@@ -179,17 +187,15 @@ class BatchEncoder:
         self._check_batch(frames)
         args = (*self._frames(frames), *self._prev,
                 self._i_frame, self._frame_no)
-        ry, ru, rv, fw, fb, ovf = encode_frames_batched(
-            *args, **self._kw(), row_cap=self.row_cap, frame_cap=self.frame_cap)
-        if bool(ovf.any()):
-            row_cap, frame_cap = bound_caps(self.seq.width, self.seq.height)
-            ry, ru, rv, fw, fb, ovf = encode_frames_batched(
-                *args, **self._kw(), row_cap=row_cap, frame_cap=frame_cap)
-            if bool(ovf.any()):
-                raise RuntimeError("frame exceeded the analytic worst-case buffer bound")
+
+        def attempt(caps):
+            out = encode_frames_batched(*args, **self._kw(), row_cap=caps["row_cap"],
+                                        frame_cap=caps["frame_cap"])
+            return None if bool(out[5].any()) else out
+        ry, ru, rv, fw, fb, _ = within_bounds(attempt, self._caps(1), "frame")
         self._prev = (ry, ru, rv)
         self._append_payloads(fw, fb)
-        self._i_frame = [0 if i >= self.seq.pframes_count else i + 1 for i in self._i_frame]
+        self._i_frame = [next_i_frame(i, self.seq.pframes_count) for i in self._i_frame]
         self._frame_no = [n + 1 for n in self._frame_no]
 
     def push_chunks(self, chunks: List[List[Frame]]) -> None:
@@ -201,17 +207,12 @@ class BatchEncoder:
             raise ValueError("every stream's chunk must hold the same number of frames")
         args = (*self._chunks(chunks), *self._prev,
                 self._i_frame, self._frame_no, self.seq.pframes_count)
-        caps = dict(row_cap=self.row_cap, frame_cap=self.frame_cap,
-                    seq_cap=self.frame_cap * max(1, n_frames // 4))
-        ry, ru, rv, sw, sb, i_f, fno, ovf, _, _ = encode_gops_batched(
-            *args, **self._kw(), **caps)
-        if bool(ovf.any()):
-            row_cap, frame_cap = bound_caps(self.seq.width, self.seq.height)
-            caps = dict(row_cap=row_cap, frame_cap=frame_cap, seq_cap=frame_cap * n_frames)
-            ry, ru, rv, sw, sb, i_f, fno, ovf, _, _ = encode_gops_batched(
-                *args, **self._kw(), **caps)
-            if bool(ovf.any()):
-                raise RuntimeError("chunk exceeded the analytic worst-case buffer bound")
+
+        def attempt(caps):
+            out = encode_gops_batched(*args, **self._kw(), **caps)
+            return None if bool(out[7].any()) else out
+        ry, ru, rv, sw, sb, i_f, fno, _, _, _ = within_bounds(attempt, self._caps(n_frames),
+                                                              "chunk")
         self._prev = (ry, ru, rv)
         self._append_payloads(sw, sb)
         self._i_frame, self._frame_no = i_f, fno
@@ -219,14 +220,10 @@ class BatchEncoder:
     def finish(self) -> List[bytes]:
         """End every stream's sequence: all ``batch`` streams, in order, on
         every rank."""
-        bw = BitWriter()
-        bw.put_chunks(SEQUENCE_END_CHUNKS)
-        end = bw.to_bytes_aligned()
         mine = {}
         for j, b in enumerate(self.streams):
-            data = b"".join(self._payload[j]) + end
-            target = (len(data) // 32 + 1) * 32
-            mine[b] = data + b"\x00" * (target - len(data))
+            data = b"".join(self._payload[j])
+            mine[b] = data + sequence_end(len(data))
         self._payload = [[b""] for _ in self.streams]
         if self.group is None:
             return [mine[b] for b in range(self.batch)]

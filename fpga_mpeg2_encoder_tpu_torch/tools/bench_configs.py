@@ -41,7 +41,7 @@ import torch  # noqa: E402
 
 from fpga_mpeg2_encoder_tpu_torch import Encoder, EncoderConfig, SequenceConfig  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.core.bitstream import (  # noqa: E402
-    SEQUENCE_END_CHUNKS, BitWriter, sequence_header_chunks)
+    sequence_end, sequence_start)
 from fpga_mpeg2_encoder_tpu_torch.models import encoder as M  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.parallel.dp import BatchEncoder, encode_gops_batched  # noqa: E402
@@ -74,13 +74,8 @@ def config_for(w, h, vl, q):
 def stream_bytes(w, h, words, nbits) -> bytes:
     """A sequence's stream from its payload: the sequence header, the
     payload, the end code and the zero pad, as Encoder.finish makes it."""
-    hdr, end = BitWriter(), BitWriter()
-    hdr.put_chunks(sequence_header_chunks(w, h))
-    end.put_chunks(SEQUENCE_END_CHUNKS)
-    data = (hdr.to_bytes_aligned()
-            + M.words_to_bytes(words[:(nbits + 31) // 32].cpu().numpy(), nbits)
-            + end.to_bytes_aligned())
-    return data + b"\x00" * ((len(data) // 32 + 1) * 32 - len(data))
+    data = sequence_start(w, h) + M.payload_bytes(words, nbits)
+    return data + sequence_end(len(data))
 
 
 def run_config(label, ns, w, h, nf, pframes, vl, q, caps, seq_cap, clips, rolled,

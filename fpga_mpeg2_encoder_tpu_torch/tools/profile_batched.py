@@ -31,7 +31,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from fpga_mpeg2_encoder_tpu_torch import EncoderConfig  # noqa: E402
-from fpga_mpeg2_encoder_tpu_torch.models.encoder import resolve_device  # noqa: E402
+from fpga_mpeg2_encoder_tpu_torch.models.encoder import chunk_caps, resolve_device  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.parallel.dp import encode_gops_batched  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.tools import common  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.tools.profile_stages import (  # noqa: E402
@@ -41,12 +41,12 @@ from fpga_mpeg2_encoder_tpu_torch.tools.profile_stages import (  # noqa: E402
 def loop_calls(dev, w, h, streams, nf, reps, cfg):
     """``reps`` calls of the batch's frame loop over ``streams`` streams of
     ``nf`` frames (each call on other frames), as BatchEncoder.push_chunks
-    runs it, with a sequence cap of nf frame caps: no sequence overflows."""
+    runs it at its first caps (``chunk_caps``)."""
     pool = common.bench_content().make_frames(w, h, nf + streams + reps)
     zy = torch.zeros((streams, h, w), dtype=torch.uint8, device=dev)
     zc = torch.zeros((streams, h // 2, w // 2), dtype=torch.uint8, device=dev)
-    kw = dict(yr=cfg.yr, ur=cfg.ur, q_level=cfg.q_level, **CAPS,
-              seq_cap=CAPS["frame_cap"] * nf)
+    kw = dict(yr=cfg.yr, ur=cfg.ur, q_level=cfg.q_level,
+              **chunk_caps(CAPS["row_cap"], CAPS["frame_cap"], w, h, nf)[0])
     calls = []
     for r in range(reps):
         stacks = [torch.as_tensor(np.stack([np.stack([pool[r + b + k][i] for k in range(nf)])

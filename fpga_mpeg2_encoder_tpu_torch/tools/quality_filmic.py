@@ -30,11 +30,11 @@ import torch  # noqa: E402
 
 from fpga_mpeg2_encoder_tpu_torch import EncoderConfig  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.core.bitstream import (  # noqa: E402
-    SEQUENCE_END_CHUNKS, BitWriter, sequence_header_chunks)
+    sequence_end, sequence_start)
 from fpga_mpeg2_encoder_tpu_torch.golden.encoder import subsample_420  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.golden.validator import validate_sequence  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.models.encoder import (  # noqa: E402
-    bound_caps, encode_frame_core, resolve_device, words_to_bytes)
+    bound_caps, encode_frame_core, next_i_frame, payload_bytes, resolve_device)
 from fpga_mpeg2_encoder_tpu_torch.tools import common  # noqa: E402
 from fpga_mpeg2_encoder_tpu_torch.utils.logging import psnr  # noqa: E402
 
@@ -63,19 +63,15 @@ def main(argv=None) -> int:
         if bool(ovf):
             raise AssertionError(f"frame {fi}: overflow at the analytic bounds")
         nbits = int(fb)
-        payloads.append(words_to_bytes(fw[:(nbits + 31) // 32].cpu().numpy(), nbits))
+        payloads.append(payload_bytes(fw, nbits))
         prev = (ry, ru, rv)
         ps.append(psnr(ry.cpu().numpy(), srcs[fi][0]))
-        i_f = 0 if i_f >= 23 else i_f + 1
+        i_f = next_i_frame(i_f, 23)
         print(f"frame {fi}: {len(payloads[-1])} B  PSNR-Y {ps[-1]:.2f} dB  "
               f"({time.perf_counter() - t0:.3f} s host wall)", flush=True)
 
-    bw = BitWriter()
-    bw.put_chunks(sequence_header_chunks(w, h))
-    end = BitWriter()
-    end.put_chunks(SEQUENCE_END_CHUNKS)
-    stream = bw.to_bytes_aligned() + b"".join(payloads) + end.to_bytes_aligned()
-    stream += b"\x00" * ((len(stream) // 32 + 1) * 32 - len(stream))
+    stream = sequence_start(w, h) + b"".join(payloads)
+    stream += sequence_end(len(stream))
     raw = nf * w * h * 3
 
     vs = validate_sequence(stream, expected_frames=nf)

@@ -51,7 +51,8 @@ host-side enqueue of the gop and frame programs: copies and fills into
 their tensors, the result's ops, the graph's replay; and each copy of a
 stream's outputs into the batch's stacks), ``batch_streams`` (each stream
 that a batch call encodes), ``overflow_retries`` (each
-re-encode at ``models/encoder.bound_caps``), ``graph_captures``,
+re-encode at ``models/encoder.bound_caps``: an ``Encoder``'s frame or chunk,
+or a ``BatchEncoder``'s whole batch), ``graph_captures``,
 ``staged_frames`` (each frame ``push_chunk`` copies up through a page-locked
 slot) and ``staging_waits`` (each time the host waits for a slot's copy to
 the device to end before writing the slot again).

@@ -52,6 +52,7 @@ def _jax_cfg(cfg):
     (416, 64, 2, 3, 3, "pan", 23, "clean", 0, 1),
     (416, 64, 3, 1, 3, "pan", 1, "partial", 37, 3),
     (288, 208, 2, 3, 3, "pan", 23, "clean", 0, 3),       # the reference fixture size
+    (64, 64, 2, 1, 4, "noise", 23, "clean", 0, 4),       # end code on a 32-byte boundary
 ])
 def test_stream_matches_golden(w, h, q, vl, n, kind, pframes, stop, groups, chunk):
     cfg = EncoderConfig(xl=5, yl=4, vector_level=vl, q_level=q)
@@ -126,12 +127,19 @@ def test_overflow_past_the_bounds_raises(monkeypatch, chunk):
         enc.encode(_video(4, 64, 64, 3, "noise"), 64, 64, 1, chunk_frames=chunk)
 
 
-def test_bound_caps_are_entropy_bounds():
+@pytest.mark.parametrize("n", [1, 3, 4, 40])
+def test_bound_caps_are_entropy_bounds(n):
     """The retry's caps are entropy's hard bounds for the frame's macroblock
-    grid (a row of 120 macroblocks, 72 rows at 1920x1152)."""
+    grid (a row of 120 macroblocks, 72 rows at 1920x1152).  An n-frame
+    chunk's caps: the given ones with a sequence cap of a quarter of its
+    frame caps (at least one), then the bounds with one frame cap a frame."""
     from fpga_mpeg2_encoder_tpu_torch.ops import entropy
-    assert M.bound_caps(1920, 1152) == (entropy.slice_words_bound(120),
-                                        entropy.frame_words_bound(120, 72))
+    row, frame = entropy.slice_words_bound(120), entropy.frame_words_bound(120, 72)
+    assert M.bound_caps(1920, 1152) == (row, frame)
+    first, bounds = M.chunk_caps(2048, 65536, 1920, 1152, n)
+    assert first == dict(row_cap=2048, frame_cap=65536,
+                         seq_cap=65536 * {1: 1, 3: 1, 4: 1, 40: 10}[n])
+    assert bounds == dict(row_cap=row, frame_cap=frame, seq_cap=frame * n)
 
 
 def test_state_handover_from_jax_encoder():

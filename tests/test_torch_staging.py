@@ -76,7 +76,7 @@ def test_staging_download_grows_only_when_outgrown():
     sizes = []
     for nbits in (32 * 100 + 5, 32 * 40, 32 * 128, 32 * 1000, 32 * 600 - 3, 1):
         got = staging.download(words, nbits)
-        assert got == M._download_payload(words, nbits)
+        assert got == M.payload_bytes(words, nbits)
         n = (nbits + 31) // 32
         assert got == words[:n].numpy().astype(">u4").tobytes()[: (nbits + 7) // 8]
         sizes.append((len(staging.words), staging.words.data_ptr()))
