@@ -11,7 +11,9 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    1920x1152, 720x576 (chroma 360 wide, 8 mod 16), 416x64 and 64x64 shapes
    of bench.py content, exact equality (an integer codec: the tolerance is
-   zero); the motion kernels for I and P frames, and the fused one also
+   zero); the subsample kernel through both entries (the stack entry, the
+   gop program's, on frame 1 of a (2, 3, H, W) stack, its Y plane copied
+   out too); the motion kernels for I and P frames, and the fused one also
    against the luma kernel followed by the chroma kernel; the symbol glue
    for the P-frame with its header rows, the I-frame past the timecode's
    hour clamp, a band of rows from first_row 5 and the header rows alone;
@@ -469,6 +471,20 @@ def main():
         checks.append(("", "subsample", lambda: k_cs.subsample_420(*planes1),
                        lambda: colorspace.subsample_420(*planes1),
                        (nbytes(*planes1[1:]) + nbytes(u1, v1), 3 * (u1.numel() + v1.numel()))))
+        # its stack entry, the gop program's: frame 1 of a (2, 3, H, W) stack
+        # read through the plane table, its Y plane copied out as well
+        stack = torch.stack([torch.stack([torch.as_tensor(p, device=dev) for p in f])
+                             for f in (f0, f1)])
+        stacks = tuple(stack[:, i] for i in range(3))
+        table = torch.empty(6, dtype=torch.int64, device=dev)
+        k1 = torch.ones(1, dtype=torch.int64, device=dev)
+        k_cs.plane_table(stacks, table)
+        y_out = torch.empty_like(planes1[0])
+        checks.append(("stack", "subsample",
+                       lambda: k_cs.subsample_420_stack(stacks, table, k1, y_out),
+                       lambda: colorspace.subsample_420(*planes1),
+                       (nbytes(*planes1) + nbytes(planes1[0], u1, v1),
+                        3 * (u1.numel() + v1.numel()))))
 
         # motion: fused, luma, chroma, I and P; the fused kernel is also held
         # against the luma kernel followed by the chroma kernel

@@ -191,9 +191,13 @@ class _FrameProgram:
 
 class _GopProgram:
     """encode_gop_scan's carry and its step on one device.  The step is
-    encode_gop_scan_core's frame on the program's tensors: frame ``frame``
-    in, the frame's rows appended to the sequence buffer, and the carry kept
-    in the program's own tensors, written where it is formed.  The motion
+    encode_gop_scan_core's frame on the program's tensors: frame ``k`` of
+    the chunk's (F, H, W) stacks in, the frame's rows appended to the
+    sequence buffer, and the carry kept in the program's own tensors,
+    written where it is formed.  The subsample kernel reads frame ``k`` of
+    the stacks in place, through ``planes`` (each stack's address and frame
+    stride, written by ``start``), and copies its Y plane into the program's
+    ``frame_y``, which the motion and transform kernels read.  The motion
     kernel reads the GOP position ``i_frame`` as it stands; the transform
     writes the recon into ``prev`` in place (the motion kernel, the only
     reader of ``prev`` in the step, has ended by then, in stream order); the
@@ -206,7 +210,8 @@ class _GopProgram:
 
     def __init__(self, dev, h, w, *, yr, ur, q_level, row_cap, frame_cap, seq_cap,
                  frames_cap):
-        self.frame, self.prev = _planes(dev, h, w, 1), _planes(dev, h, w, 2)
+        self.frame_y = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+        self.prev = _planes(dev, h, w, 2)
         self.i_frame, self.frame_no, self.pframes = (entropy.gop_scalar(0, dev)
                                                      for _ in range(3))
         # guard margin per the append_bitstring sizing contract, as in
@@ -221,11 +226,17 @@ class _GopProgram:
         self.seq_cap, self.frames_cap = seq_cap, frames_cap
         self.yr, self.ur, self.q_level = yr, ur, q_level
         self.row_cap, self.frame_cap = row_cap, frame_cap
+        # the stacks the step reads, kept until the next start (a captured
+        # graph reads them); until the first, the warm-up and the capture
+        # read the zeroed prev_y as a one-frame stack of all three planes
+        self.stacks = (self.prev[0][None],) * 3
+        self.planes = torch.zeros(6, dtype=torch.int64, device=dev)
+        k_colorspace.plane_table(self.stacks, self.planes)
         self.step = graphs.Step(self._step, dev, "gop")
-        self._feed_launches = 3 + self.step.launches_a_call      # the planes, the replay
 
     def _step(self) -> None:
-        y, u, v = k_colorspace.subsample_420(*self.frame)
+        y, u, v = k_colorspace.subsample_420_stack(self.stacks, self.planes, self.k,
+                                                   self.frame_y)
         mr = k_me.estimate_and_predict_planes(y, u, v, *self.prev, None, self.yr, self.ur,
                                               position=self.i_frame)
         quant_zig, *_ = k_transform.transform_recon(y, u, v, mr.pred_y, mr.pred_u, mr.pred_v,
@@ -240,10 +251,36 @@ class _GopProgram:
                           (self.seq_bits, self.overflow, self.i_frame, self.pframes,
                            self.frame_no, self.k), (self.frame_bits, self.frame_ifs))
 
-    def start(self, prev, i_frame0, frame_no0, pframes_count) -> None:
-        """Set the carry for a new chunk: the reference planes, the GOP
-        state, an empty sequence buffer and no overflow."""
+    def _take_stacks(self, frames) -> int:
+        """Check the chunk's (F, H, W) stacks and point the step at them:
+        each read in place where the subsample kernel can
+        (``k_colorspace.in_place``), else copied once, contiguous, for this
+        chunk (counted as ``stack_copies``).  Returns the launches
+        enqueued: those copies and the table's writes."""
+        f, dev = len(frames[0]), self.frame_y.device
+        want = (f, *self.frame_y.shape)
+        stacks = []
+        for src, name in zip(frames, ("frames_y", "frames_u", "frames_v")):
+            if src.device != dev or src.dtype != torch.uint8 or tuple(src.shape) != want:
+                raise ValueError(f"{name}: {tuple(src.shape)} {src.dtype} on {src.device}, "
+                                 f"the program takes {want} torch.uint8 on {dev}")
+            stacks.append(src if k_colorspace.in_place(src)
+                          else src.clone(memory_format=torch.contiguous_format))
+        copies = sum(s is not src for s, src in zip(stacks, frames))
+        if copies:
+            count("stack_copies", copies)
+        else:
+            count("frames_in_place", f)
+        self.stacks = tuple(stacks)
+        k_colorspace.plane_table(self.stacks, self.planes)
+        return copies + 2 * len(stacks)
+
+    def start(self, frames, prev, i_frame0, frame_no0, pframes_count) -> None:
+        """Set the carry for a new chunk: the frames' (F, H, W) stacks,
+        the reference planes, the GOP state, an empty sequence buffer and no
+        overflow."""
         with span("gop.start"):
+            launches = self._take_stacks(frames)
             for dst, src, name in zip(self.prev, prev, ("prev_y", "prev_u", "prev_v")):
                 _copy_in(dst, src, name)
             scalars = (self.i_frame, self.frame_no, self.pframes)
@@ -253,16 +290,13 @@ class _GopProgram:
             zeroed = (self.seq_words, self.seq_bits, self.overflow, self.k)
             for t in zeroed:
                 t.zero_()
-            count("host_launches", _enqueued(self.prev + scalars, tuple(prev) + values)
+            count("host_launches", launches + _enqueued(self.prev + scalars, tuple(prev) + values)
                   + len(zeroed))
 
-    def feed(self, y444, u444, v444) -> None:
-        """One frame through the step."""
+    def feed(self) -> None:
+        """The chunk's next frame through the step."""
         with span("gop.feed"):
-            for dst, src, name in zip(self.frame, (y444, u444, v444),
-                                      ("y444", "u444", "v444")):
-                _copy_in(dst, src, name)
-            count("host_launches", self._feed_launches)
+            count("host_launches", self.step.launches_a_call)
             self.step()
 
     def result(self, n_frames: int):
@@ -307,17 +341,21 @@ def encode_gop_scan(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
     frame_no (0-d int32), overflow, frame_bits (F,) int64, frame_i_frames
     (F,) int32).
 
-    On a card one frame's step is a captured graph, replayed F times: per
-    frame the host enqueues the copies of the frame's three planes into the
-    step's inputs and the graph's launch (4 launches), and per chunk 12
-    more (the carry set: 3 plane copies, 3 scalars, 4 zeroings; the
-    overflow's last term: 2), 7 where the recon planes, the GOP position and
-    the frame number passed in are a previous call's outputs, since a copy
-    of a tensor onto itself enqueues nothing.  ``utils/profiling`` counts
-    each as ``host_launches``.  The outputs are the
-    program's tensors, rewritten by the next call of a program of the same
-    geometry, knobs and caps: clone what you keep.  On the CPU the step
-    runs eagerly."""
+    On a card one frame's step is a captured graph, replayed F times, whose
+    first kernel reads frame k of the stacks where they lie: per frame the
+    host enqueues the graph's launch alone (1 launch), and per chunk 18
+    more (the stacks' table: 6 writes; the carry set: 3 plane copies, 3
+    scalars, 4 zeroings; the overflow's last term: 2), 13 where the recon
+    planes, the GOP position and the frame number passed in are a previous
+    call's outputs, since a copy of a tensor onto itself enqueues nothing.
+    A stack whose frames' rows are not contiguous, or whose data or frame
+    stride is not a multiple of 16 bytes, is first copied whole (1 launch
+    more a plane and chunk).  ``utils/profiling`` counts each as
+    ``host_launches``, the frames read in place as ``frames_in_place`` and
+    the stacks copied as ``stack_copies``.  The program keeps the stacks
+    until its next call.  The outputs are the program's tensors, rewritten
+    by the next call of a program of the same geometry, knobs and caps:
+    clone what you keep.  On the CPU the step runs eagerly."""
     f, h, w = frames_y.shape
     frames_cap = max(64, 1 << (f - 1).bit_length())
     kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap,
@@ -326,9 +364,10 @@ def encode_gop_scan(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
     prog = graphs.cached(("gop", dev, h, w, yr, ur, q_level, row_cap, frame_cap, seq_cap,
                           frames_cap),
                          lambda: _GopProgram(dev, h, w, **kw, frames_cap=frames_cap))
-    prog.start((prev_y, prev_u, prev_v), i_frame0, frame_no0, pframes_count)
-    for k in range(f):
-        prog.feed(frames_y[k], frames_u[k], frames_v[k])
+    prog.start((frames_y, frames_u, frames_v), (prev_y, prev_u, prev_v), i_frame0, frame_no0,
+               pframes_count)
+    for _ in range(f):
+        prog.feed()
     return prog.result(f)
 
 

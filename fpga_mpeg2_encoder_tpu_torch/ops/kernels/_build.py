@@ -37,12 +37,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.  pack_symbols has no kernel of its
 # own and no count: its launches are pack_slots'.  merge_rows and
-# merge_append launch the one merge kernel and share its count.  gop_carry
-# runs only in encode_gop_scan's step on a card, once a frame.  A launch
-# made while a CUDA graph is captured runs only when the graph is replayed:
-# it goes to the capture's tally (``tally_into``), and each replay adds the
-# tally here (``add_launches``), so the counts are the same as if each
-# replayed step had launched its kernels one by one.
+# merge_append launch the one merge kernel and share its count, and so do
+# subsample_420 and subsample_420_stack, the subsample kernel's two entries.
+# gop_carry runs only in encode_gop_scan's step on a card, once a frame.  A
+# launch made while a CUDA graph is captured runs only when the graph is
+# replayed: it goes to the capture's tally (``tally_into``), and each replay
+# adds the tally here (``add_launches``), so the counts are the same as if
+# each replayed step had launched its kernels one by one.
 LAUNCHES: Dict[str, int] = {"transform": 0, "acsym": 0, "pack_slots": 0,
                             "merge_rows": 0, "me_fused": 0, "me_luma": 0,
                             "chroma_pred": 0, "glue": 0, "subsample": 0, "gop_carry": 0}
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "mpeg2_chroma_pred": [_P] * 7 + [_I] * 4 + [_P],
     "mpeg2_glue": [_P] * 15 + [_I] * 5 + [_P],
     "mpeg2_subsample": [_P] * 4 + [_I, _I, _P],
+    "mpeg2_subsample_stack": [_P] * 5 + [_I, _I, _P],
     "mpeg2_gop_carry": [_P] * 12 + [_I] * 3 + [_P],
 }
 

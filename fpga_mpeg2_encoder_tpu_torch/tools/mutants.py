@@ -204,6 +204,11 @@ MUTANTS = {
          "*reinterpret_cast<const uint4*>(src + 2 * w);"),
         ("output_column", "(long long)r * (w / 2) + 8 * g", "(long long)r * (w / 2) + 4 * g"),
         ("plane_select", "(second ? v : u)", "(second ? u : v)"),
+        # the stack entry's own code: the frame, the table, the Y copy
+        ("stack_frame_before", "const long long f = *k;", "const long long f = *k - 1;"),
+        ("stack_plane_stride", "f * planes[2 * p + 1]", "f * planes[1]"),
+        ("stack_y_skipped", "reinterpret_cast<uint4*>(yo)[j] = src[j];", "(void)src;"),
+        ("stack_y_shifted", "(yo)[j] = src[j];", "(yo)[j] = src[j + 1];"),
     ]),
     "carry.cu": ("carry", [
         ("gop_wrap", "pos >= pframes ? 0", "pos > pframes ? 0"),

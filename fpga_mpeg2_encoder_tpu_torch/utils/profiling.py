@@ -32,7 +32,7 @@ The spans (``arg``: the sequence number of the call's first frame):
   ``np.stack`` and ``.upload`` their conversion to tensors, once a chunk;
 * ``push_frame``, with ``.upload``, ``.program``, ``.sync``, ``.download``
   and ``.carry`` defined the same way;
-* ``gop.start``, ``gop.feed`` (a frame's plane copies and replay) and
+* ``gop.start``, ``gop.feed`` (a frame's replay) and
   ``gop.result`` (``encode_gop_scan``'s program), ``frame.feed``
   (``encode_frame_device``'s);
 * ``replay.<kind>`` and ``capture.<kind>`` (``runtime/graphs.Step``; the
@@ -54,8 +54,11 @@ that a batch call encodes), ``overflow_retries`` (each
 re-encode at ``models/encoder.bound_caps``: an ``Encoder``'s frame or chunk,
 or a ``BatchEncoder``'s whole batch), ``graph_captures``,
 ``staged_frames`` (each frame ``push_chunk`` copies up through a page-locked
-slot) and ``staging_waits`` (each time the host waits for a slot's copy to
-the device to end before writing the slot again).
+slot), ``staging_waits`` (each time the host waits for a slot's copy to
+the device to end before writing the slot again), ``frames_in_place``
+(each frame the gop program's step reads from the caller's stacks where
+they lie) and ``stack_copies`` (each plane of a chunk's stacks that the gop
+program copies first, since its step cannot read it in place).
 
 The benchmark's per-layer metrics read the tally (``bench_port/metrics``);
 the command line's ``--stats`` prints ``COUNTS``.

@@ -1,6 +1,12 @@
 """Seeded operands for the checks of the merge and chroma kernels against
-their plain versions (tests/test_torch_*.py and chip_smoke.py).  numpy only."""
+their plain versions (tests/test_torch_*.py and chip_smoke.py), in numpy;
+and the layouts of frame stacks that encode_gop_scan's callers hand over,
+in torch."""
 import numpy as np
+
+# the layouts of stack_layout; the subsample kernel reads all but "strided"
+# in place
+STACK_LAYOUTS = ("slice", "push_chunk", "mixed", "strided")
 
 
 def random_sequence(rng, n_words, seq_bits):
@@ -62,3 +68,30 @@ GOLDEN_MATRIX = (
     (416, 64, 4, 2, 4, "noise", 1, "clean", 0, 1),       # GOP wrap: I P I P
     (416, 64, 1, 1, 3, "pan", 23, "clean", 0, 3),
 )
+
+
+def stack_layout(stacks, layout):
+    """The (F, H, W) uint8 tensors ``stacks`` (Y, U, V), equal in value, in
+    the layout ``layout`` of STACK_LAYOUTS: "slice", each a contiguous slice
+    from frame 2 of a longer stack whose first two frames differ; "push_chunk",
+    the planes of one (F, 3, H, W) stack, as Encoder.push_chunk stages them
+    (a frame stride of 3·H·W); "mixed", Y a slice, U a plane of an
+    (F, 3, H, W) stack and V of an (F, 2, H, W) one, three frame strides;
+    "strided", every other column of stacks twice as wide."""
+    import torch
+
+    y, u, v = stacks
+    f, h, w = y.shape
+    if layout == "slice":
+        return tuple(torch.cat([255 - s[:1].expand(2, h, w), s])[2:] for s in stacks)
+    if layout == "push_chunk":
+        return torch.stack(stacks, 1).unbind(1)
+    if layout == "mixed":
+        return (stack_layout(stacks, "slice")[0], torch.stack([y, u, v], 1)[:, 1],
+                torch.stack([v, u], 1)[:, 0])
+    if layout == "strided":
+        wide = [torch.zeros((f, h, 2 * w), dtype=s.dtype, device=s.device) for s in stacks]
+        for dst, s in zip(wide, stacks):
+            dst[..., ::2] = s
+        return tuple(t[..., ::2] for t in wide)
+    raise ValueError(f"unknown stack layout {layout!r}")

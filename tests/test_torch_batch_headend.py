@@ -95,7 +95,8 @@ def test_batch_equals_reference_and_single_streams(w, h, pframes, chunks, given)
 def test_batch_spans_and_counters(tmp_path):
     """One chunk of 2 frames of 3 streams: the spans nest as documented and
     the counters take their counts, the single-stream programs' launches
-    (per frame 3 plane copies, per chunk 3 plane copies, 3 scalar fills, 4
+    (none per frame, the frames read from the batch's stacks in place; per
+    chunk the stacks' 6 table writes, 3 plane copies, 3 scalar fills, 4
     zeroings and the result's 2 ops on the CPU) plus 10 copies a stream."""
     w = h = 64
     kw = _caps(w, h, 2)
@@ -113,7 +114,8 @@ def test_batch_spans_and_counters(tmp_path):
         "batch.gop": 1, "batch.stream": STREAMS, "batch.collect": STREAMS, "batch.sync": 1}
     assert spans["gop.feed"][0] == 2 * STREAMS
     assert counts["host_syncs"] == 3 and counts["batch_streams"] == STREAMS
-    assert counts["host_launches"] == STREAMS * (2 * 3 + 12 + 10)
+    assert counts["host_launches"] == STREAMS * (2 * 0 + 18 + 10)
+    assert counts["frames_in_place"] == 2 * STREAMS and "stack_copies" not in counts
     for a, b in zip(got, want):
         assert (a == b) if isinstance(a, list) else torch.equal(a, b)
 

@@ -47,7 +47,7 @@ from fpga_mpeg2_encoder_tpu_torch.parallel.spatial import band_with_halo, frame_
 from fpga_mpeg2_encoder_tpu_torch.runtime import graphs
 from fpga_mpeg2_encoder_tpu_torch.utils import profiling
 from fpga_mpeg2_encoder_tpu_torch.utils.testdata import (
-    GOLDEN_MATRIX, chroma_maps, random_sequence, video)
+    GOLDEN_MATRIX, STACK_LAYOUTS, chroma_maps, random_sequence, stack_layout, video)
 
 pytestmark = pytest.mark.cuda
 MAIN_PATH = ("subsample", "me_fused", "transform", "glue", "acsym", "pack_slots", "merge_rows")
@@ -347,6 +347,32 @@ def test_subsample_kernel_equals_plain(dev, w, h, kind):
         assert g.dtype == torch.uint8 and g.is_contiguous() and torch.equal(g, wnt)
 
 
+@pytest.mark.parametrize("w,h", [(720, 576), (416, 64), (48, 32)])
+@pytest.mark.parametrize("layout", [x for x in STACK_LAYOUTS if x != "strided"])
+def test_subsample_stack_kernel_equals_plain(dev, layout, w, h):
+    """The stack entry, one launch a frame, reads frame k of (F, H, W)
+    stacks through the plane table and k in device memory, at every k, in
+    each layout the kernel reads in place (a slice whose frame before the
+    first differs; push_chunk's planes; three frame strides): its chroma
+    equals the plain subsample_420 of frame k, and its Y plane frame k's,
+    written into a plane that held something else."""
+    f = 3
+    frames = [_subsample_planes(dev, w, h, "noise" if i != 1 else "cells") for i in range(f)]
+    stacks = stack_layout([torch.stack(p) for p in zip(*frames)], layout)
+    table = torch.empty(6, dtype=torch.int64, device=dev)
+    k_colorspace.plane_table(stacks, table)
+    k = torch.zeros(1, dtype=torch.int64, device=dev)
+    for i in range(f):
+        k.fill_(i)
+        y = torch.full((h, w), 7, dtype=torch.uint8, device=dev)
+        got = _launched("subsample", lambda: k_colorspace.subsample_420_stack(stacks, table,
+                                                                               k, y))
+        want = colorspace.subsample_420(*frames[i])
+        assert got[0] is y
+        for g, wnt in zip(got, want):
+            assert g.dtype == torch.uint8 and g.is_contiguous() and torch.equal(g, wnt), i
+
+
 def test_glue_subsample_wrappers_check_inputs(dev):
     q, inter, mvx, mvy = _glue_operands(dev, 2, 3, 0, "mixed")
     odd = torch.zeros(q.numel() + 1, dtype=torch.int32, device=dev)[1:].view(q.shape)
@@ -365,6 +391,14 @@ def test_glue_subsample_wrappers_check_inputs(dev):
         k_colorspace.subsample_420(y, flat, y)
     with pytest.raises(ValueError, match="several devices"):
         k_colorspace.subsample_420(y, y.cpu(), y)
+    table = torch.zeros(6, dtype=torch.int64, device=dev)
+    k = torch.zeros(1, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        k_colorspace.subsample_420_stack((y[None],) * 3, table, k, y[:, :40])
+    with pytest.raises(ValueError, match="aligned"):
+        k_colorspace.subsample_420_stack((y[None],) * 3, table, k, flat)
+    with pytest.raises(TypeError, match="dtype"):
+        k_colorspace.subsample_420_stack((y[None],) * 3, table.int(), k, y)
 
 
 def _slots(dev, r, s, seed, density=0.5, dirty=False):
@@ -1649,16 +1683,19 @@ def test_graph_carry_overflow_retry_at_small_caps(dev, over):
 def test_graph_carry_me_pack_replay_device_ops(dev, tmp_path):
     """A replay of the gop program's step is 9 device operations in the
     profiler's trace, those inside its ``replay.gop`` span on the device:
-    the seven stage kernels, the header rows' cat and the carry kernel; no
-    copy, fill or small elementwise kernel.  Four replays are traced, and
-    the fullest is held to that (the profiler now and then drops some of a
-    short window's events), none with more."""
+    the seven stage kernels (the subsample's stack entry, which reads the
+    frame in place), the header rows' cat and the carry kernel; no copy,
+    fill or small elementwise kernel.  Four replays are traced (frames 2-5
+    of the stack the program was handed, a slice of a longer one), and the
+    fullest is held to that (the profiler now and then drops some of a
+    short window's events), none with more.  A whole call of 4 frames
+    copies device to device only the 3 recon planes it is handed, once."""
     graphs.clear()
-    stacks = _stacks(dev, 416, 64, 2, 5)
+    stacks = _stacks(dev, 416, 64, 6, 5)
     zy = torch.zeros((64, 416), dtype=torch.uint8, device=dev)
     zc = torch.zeros((32, 208), dtype=torch.uint8, device=dev)
-    M.encode_gop_scan(*stacks, zy, zc, zc, 0, 0, 2, yr=6, ur=3, q_level=2, row_cap=4096,
-                      frame_cap=65536, seq_cap=262144)
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=65536, seq_cap=262144)
+    M.encode_gop_scan(*(s[:2] for s in stacks), zy, zc, zc, 0, 0, 2, **kw)
     (prog,) = [p for k, p in graphs._programs.items() if k[0] == "gop"]
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1669,6 +1706,12 @@ def test_graph_carry_me_pack_replay_device_ops(dev, tmp_path):
     path = tmp_path / "replays.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
+    with torch.profiler.profile(activities=acts) as whole:
+        M.encode_gop_scan(*(s[2:] for s in stacks), zy, zc, zc, 0, 0, 2, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in whole.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("subsample_kernel_stack" in n for n in names), names
+    assert sum("DtoD" in n for n in names) <= 3, names
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("cat") == "gpu_user_annotation" and e.get("name") == "replay.gop"]
     ops = [(e["ts"], e["name"].replace("(anonymous namespace)::", "").split("(")[0])
@@ -1677,8 +1720,76 @@ def test_graph_carry_me_pack_replay_device_ops(dev, tmp_path):
     assert per_replay and all(len(r) <= 9 for r in per_replay), per_replay
     fullest = max(per_replay, key=len)
     assert len(fullest) == 9, per_replay
-    for name in ("subsample_kernel", "me_fused_kernel", "transform_kernel", "glue_kernel",
-                 "CatArrayBatchedCopy", "acsym_kernel", "pack_slots_kernel",
+    for name in ("subsample_kernel_stack", "me_fused_kernel", "transform_kernel",
+                 "glue_kernel", "CatArrayBatchedCopy", "acsym_kernel", "pack_slots_kernel",
                  "merge_rows_kernel", "gop_carry_kernel"):
         assert sum(name in op for op in fullest) == 1, (name, fullest)
+    graphs.clear()
+
+
+@pytest.mark.parametrize("layout", STACK_LAYOUTS)
+def test_graph_subsample_stack_gop_scan_layouts(dev, layout):
+    """encode_gop_scan on the card, its step reading each frame through the
+    plane table, equals the eager encode_gop_scan_core (the subsample's
+    direct entry on copies of the frames) in all ten outputs, over stacks in
+    each layout its callers hand over: a contiguous slice at frame 2 of a
+    longer stack, push_chunk's (F, 3, H, W) planes, three frame strides, and
+    every other column, which it copies once.  frames_in_place and
+    stack_copies count exactly that; each kernel launches once a frame."""
+    w, h, f, pframes = 416, 64, 5, 2
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=65536, seq_cap=262144)
+    plain = _stacks(dev, w, h, f, 31 + len(layout))
+    stacks = stack_layout(plain, layout)
+    zy = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((h // 2, w // 2), dtype=torch.uint8, device=dev)
+    want = M.encode_gop_scan_core(*plain, zy, zc, zc, 1, 1437, pframes, **kw)
+    graphs.clear()
+    before = dict(profiling.COUNTS)
+    _build.reset_launches()
+    got = M.encode_gop_scan(*stacks, zy, zc, zc, 1, 1437, pframes, **kw)
+    torch.cuda.synchronize()
+    counted = {k: profiling.COUNTS.get(k, 0) - before.get(k, 0)
+               for k in ("frames_in_place", "stack_copies")}
+    assert counted == ({"frames_in_place": 0, "stack_copies": 3} if layout == "strided"
+                       else {"frames_in_place": f, "stack_copies": 0})
+    assert _build.LAUNCHES == {**{k: f for k in MAIN_PATH}, "me_luma": 0, "chroma_pred": 0,
+                               "gop_carry": f}, _build.LAUNCHES
+    for k in range(3):
+        assert torch.equal(got[k], want[k]), k
+    nw = (int(want[4]) + 31) // 32
+    assert int(got[4]) == int(want[4]) and torch.equal(got[3][:nw], want[3][:nw])
+    assert (int(got[5]), int(got[6])) == (want[5], want[6]) == (0, 1442)
+    assert bool(got[7]) is bool(want[7]) is False
+    assert got[8].tolist() == want[8].tolist() and got[9].tolist() == want[9]
+    graphs.clear()
+
+
+def test_graph_subsample_stack_batch_streams_back_to_back(dev):
+    """Eight streams of different content through encode_gops_batched, one
+    gop program whose plane table each stream's call writes again with no
+    wait between the calls (in stream order after the last stream's
+    replays): each stream's payload, recon, GOP state and frames' bits equal
+    the eager encode_gop_scan_core of that stream alone."""
+    w, h, n, streams, pframes = 416, 64, 4, 8, 2
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=4096, frame_cap=65536, seq_cap=262144)
+    videos = [video(90 + b, w, h, n, "noise" if b % 3 == 1 else "pan") for b in range(streams)]
+    planes = [torch.as_tensor(np.stack([np.stack([f[p] for f in v]) for v in videos]),
+                              device=dev) for p in range(3)]
+    zy = torch.zeros((streams, h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((streams, h // 2, w // 2), dtype=torch.uint8, device=dev)
+    i0, f0 = [b % 3 for b in range(streams)], [100 * b for b in range(streams)]
+    graphs.clear()
+    ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = encode_gops_batched(
+        *planes, zy, zc, zc, i0, f0, pframes, **kw)
+    assert not bool(ovf.any())
+    for b in range(streams):
+        want = M.encode_gop_scan_core(*(p[b] for p in planes), zy[b], zc[b], zc[b], i0[b],
+                                      f0[b], pframes, **kw)
+        nb = int(want[4])
+        assert int(sb[b]) == nb and torch.equal(sw[b, :(nb + 31) // 32],
+                                               want[3][:(nb + 31) // 32]), b
+        for mine, theirs in zip((ry[b], ru[b], rv[b]), want[:3]):
+            assert torch.equal(mine, theirs), b
+        assert (i_f[b], fno[b]) == (want[5], want[6]) and fifs[b] == want[9], b
+        assert fbits[b].tolist() == want[8].tolist(), b
     graphs.clear()

@@ -24,9 +24,11 @@ import jax.numpy as jnp
 from fpga_mpeg2_encoder_tpu.ops import colorspace as jcolorspace
 from fpga_mpeg2_encoder_tpu.ops import entropy as jentropy
 from fpga_mpeg2_encoder_tpu.ops.pallas import acsym as jacsym
+from fpga_mpeg2_encoder_tpu_torch.ops import colorspace
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import _build
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import colorspace as k_colorspace
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import glue as k_glue
+from fpga_mpeg2_encoder_tpu_torch.utils.testdata import STACK_LAYOUTS, stack_layout
 
 Q_LEVEL = 2
 # (i_frame, frame_no): an I-frame at 0; P-frames across a minute's rollover
@@ -208,3 +210,46 @@ def test_subsample_matches_jax(w, h, kind, impl, monkeypatch):
     if kind == "cells":
         mean4 = (u.reshape(h // 2, 2, w // 2, 2).astype(int).sum((1, 3)) + 2) >> 2
         assert not np.array_equal(got[1].numpy(), mean4)
+
+
+@pytest.mark.parametrize("layout", STACK_LAYOUTS)
+def test_subsample_stack_plain_reads_frame_k(layout):
+    """The stack entry's plain version at each frame k of (F, H, W) stacks
+    in each layout: frame k's Y plane copied into the step's plane, and
+    subsample_420 of frame k, which equals JAX's; no launch counted.  The
+    plane table holds each stack's address and frame stride."""
+    w, h, f = 48, 32, 3
+    frames = [_planes(h, w, 5 + i, "cells" if i % 2 else "noise") for i in range(f)]
+    stacks = stack_layout([torch.from_numpy(np.stack(p)) for p in zip(*frames)], layout)
+    table = torch.zeros(6, dtype=torch.int64)
+    k_colorspace.plane_table(stacks, table)
+    assert table.tolist() == [v for s in stacks for v in (s.data_ptr(), s.stride(0))]
+    for k in range(f):
+        y = torch.zeros((h, w), dtype=torch.uint8)
+        before = dict(_build.LAUNCHES)
+        got = k_colorspace.subsample_420_stack(stacks, table, torch.tensor([k]), y)
+        assert _build.LAUNCHES == before and got[0] is y
+        want = jcolorspace.subsample_420(*(jnp.asarray(p) for p in frames[k]))
+        for g, wnt in zip(got, want):
+            assert g.dtype == torch.uint8 and np.array_equal(g.numpy(), np.asarray(wnt)), k
+        assert all(torch.equal(g, p) for g, p in
+                   zip(got, colorspace.subsample_420(*(s[k] for s in stacks))))
+
+
+def test_subsample_stack_in_place_rule():
+    """The stack entry reads a stack in place when each frame's rows are
+    contiguous and its data and frame stride are multiples of 16 bytes:
+    slices at any frame, a plane of an (F, 3, H, W) stack, a frame repeated
+    (stride 0); not a column-strided view, a transposed one, data 8 bytes
+    off, a frame stride of H·W + 8."""
+    f, h, w = 3, 32, 48
+    buf = torch.zeros(f * h * w + 64, dtype=torch.uint8)
+    assert buf.data_ptr() % 16 == 0
+    whole = buf[:f * h * w].view(f, h, w)
+    for s in (whole, whole[1:], torch.zeros((f, 3, h, w), dtype=torch.uint8)[:, 2],
+              whole[0].expand(f, h, w)):
+        assert k_colorspace.in_place(s)
+    for s in (torch.zeros((f, h, 2 * w), dtype=torch.uint8)[..., ::2],
+              torch.zeros((f, w, h), dtype=torch.uint8).transpose(1, 2),
+              buf[8:8 + f * h * w].view(f, h, w), buf.as_strided((f, h, w), (h * w + 8, w, 1))):
+        assert not k_colorspace.in_place(s)

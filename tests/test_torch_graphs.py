@@ -10,7 +10,8 @@ chunk of fewer than 8 frames whose timecode rolls over (frame 1439 -> 1440)
 and whose GOP wraps.  The gop program's carry (ops/kernels/carry.py, its
 plain version here) against the operations the step ran before it and
 against the GOP rules, and encode_gop_scan against the eager
-encode_gop_scan_core.  Also the launch ledger's arithmetic under replay and
+encode_gop_scan_core, over stacks in each layout its callers hand over.
+Also the launch ledger's arithmetic under replay and
 the program cache.  All equality is exact.
 """
 import numpy as np
@@ -31,7 +32,8 @@ from fpga_mpeg2_encoder_tpu_torch.ops.kernels import me as k_me
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import pack as k_pack
 from fpga_mpeg2_encoder_tpu_torch.ops.kernels import transform as k_tf
 from fpga_mpeg2_encoder_tpu_torch.runtime import graphs
-from fpga_mpeg2_encoder_tpu_torch.utils.testdata import video
+from fpga_mpeg2_encoder_tpu_torch.utils import profiling
+from fpga_mpeg2_encoder_tpu_torch.utils.testdata import STACK_LAYOUTS, stack_layout, video
 
 W, H, NF = 416, 64, 5           # nbx = 26; a chunk of fewer than 8 frames
 KW = dict(yr=6, ur=3, q_level=2, row_cap=1024, frame_cap=16384)
@@ -337,4 +339,39 @@ def test_encode_gop_scan_equals_core(case):
         assert bool(got[7]) is bool(want[7]) is case.endswith("over")
         assert got[8].tolist() == want[8].tolist() and got[9].tolist() == want[9]
         core, prog = (want[:3], want[5], want[6]), (got[:3], got[5], got[6])
+    graphs.clear()
+
+
+@pytest.mark.parametrize("layout", STACK_LAYOUTS)
+def test_encode_gop_scan_reads_each_stack_layout(layout):
+    """encode_gop_scan equals encode_gop_scan_core in all ten outputs
+    whatever the layout of the stacks it is handed (a slice at frame 2, the
+    planes of push_chunk's (F, 3, H, W) stack, three frame strides, every
+    other column); frames_in_place counts the chunk's frames where each
+    plane is read in place, stack_copies each plane copied first (only the
+    column-strided ones), and the program keeps the stacks it read."""
+    w, h, f = 64, 64, 3
+    kw = dict(yr=6, ur=3, q_level=2, row_cap=1024, frame_cap=16384, seq_cap=65536)
+    frames = video(78, w, h, f)
+    plain = [torch.from_numpy(np.stack([fr[i] for fr in frames])) for i in range(3)]
+    stacks = stack_layout(plain, layout)
+    zy, zc = torch.zeros((h, w), dtype=torch.uint8), torch.zeros((h // 2, w // 2),
+                                                                 dtype=torch.uint8)
+    want = M.encode_gop_scan_core(*plain, zy, zc, zc, 1, 7, 2, **kw)
+    graphs.clear()
+    before = dict(profiling.COUNTS)
+    got = M.encode_gop_scan(*stacks, zy, zc, zc, 1, 7, 2, **kw)
+    counted = {k: profiling.COUNTS.get(k, 0) - before.get(k, 0)
+               for k in ("frames_in_place", "stack_copies")}
+    assert counted == ({"frames_in_place": 0, "stack_copies": 3} if layout == "strided"
+                       else {"frames_in_place": f, "stack_copies": 0})
+    (prog,) = graphs._programs.values()
+    assert all((s is t) is (layout != "strided") for s, t in zip(prog.stacks, stacks))
+    for k in range(4):
+        assert torch.equal(got[k], want[k]), k
+    assert int(got[4]) == int(want[4]) and (int(got[5]), int(got[6])) == (want[5], want[6])
+    assert bool(got[7]) is bool(want[7]) is False
+    assert got[8].tolist() == want[8].tolist() and got[9].tolist() == want[9]
+    with pytest.raises(ValueError, match="frames_v"):
+        M.encode_gop_scan(*stacks[:2], stacks[2][:, :, :32], zy, zc, zc, 1, 7, 2, **kw)
     graphs.clear()

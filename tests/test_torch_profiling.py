@@ -67,9 +67,12 @@ def test_public_api_spans_nest_in_the_chrome_trace(tmp_path, api):
         assert spans[name][0] == calls and spans[name][1] > 0, name
     assert counts["host_syncs"] == SYNCS[api] * calls
     # the CPU has no graph: the programs' host copies and fills, no replay
-    # (push_chunk: per frame 3 plane copies, per chunk 3 plane copies, 3
+    # (push_chunk: nothing per frame, the frames read from the stack in
+    # place; per chunk the stack's 6 table writes, 3 plane copies, 3
     # scalars, 4 zeroings and 2 ops; push_frame: 6 plane copies, 2 scalars)
-    assert counts["host_launches"] == (4 * 3 + calls * 12 if api == "push_chunk" else 4 * 8)
+    assert counts["host_launches"] == (4 * 0 + calls * 18 if api == "push_chunk" else 4 * 8)
+    if api == "push_chunk":
+        assert counts["frames_in_place"] == 4 and "stack_copies" not in counts
     assert spans["gop.feed" if api == "push_chunk" else "frame.feed"][0] == 4
     assert not any(s.startswith(("replay.", "capture.")) for s in spans)
     assert profiling.COUNTS.get("graph_captures", 0) == 0
