@@ -17,8 +17,11 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    against the luma kernel followed by the chroma kernel; the symbol glue
    for the P-frame with its header rows, the I-frame past the timecode's
    hour clamp, a band of rows from first_row 5 and the header rows alone;
-   the merge kernel as merge_rows and as merge_append (the
-   frame loop's form) at every seq_bits & 31, cut at a cap and clamped; the
+   the pack kernel through the public entry and through the gop program's
+   (the header rows and the slice rows as two operands: the same words
+   under each row's bits, the same bits); the merge kernel as merge_rows
+   and as merge_append (the frame loop's form) at every seq_bits & 31, cut
+   at a cap and clamped; the
    gop program's carry kernel at the GOP wrap and with a row or the frame
    over its cap (untimed: a launch's worth of work).  At
    1920x1152 both are timed two ways: device time from torch.profiler (the
@@ -596,6 +599,20 @@ def main():
                            lambda c=cap: k_pack.pack_symbols(codes, lens, c),
                            lambda c=cap: bitpack.pack_symbols(codes, lens, c),
                            (nbytes(codes, lens) + out_bytes, 0)))
+        # the gop program's entry: the header rows and the slice rows as two
+        # operands, each row written up to its last partial word; there, and
+        # in its bits, it equals the public entry on the stacked grid
+        hdr, rows = entropy.symbolize_rows(qzig, mr_p.inter, mr_p.mvx, mr_p.mvy, 1, 1,
+                                           cfg.q_level)
+
+        def under_bits(words, bits):
+            cols = torch.arange(words.shape[1], device=dev)
+            return torch.where(cols < (bits[:, None] + 31) // 32, words, 0), bits
+
+        checks.append(("two operands", "pack_slots",
+                       lambda: under_bits(*k_pack.pack_rows(hdr, rows, CAPS["row_cap"])),
+                       lambda: under_bits(*k_pack.pack_slots(slots, CAPS["row_cap"])[:2]),
+                       None))
         needed = (int(((rb + 31) // 32).sum()) + rb.numel()) * WORD_BYTES
         for cap, tag in ((CAPS["frame_cap"], ""), (64, " overflow")):
             checks.append((f"cap {cap}{tag}", "merge_rows",

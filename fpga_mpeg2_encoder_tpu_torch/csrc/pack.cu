@@ -3,7 +3,9 @@
 // pack_slots: concatenate each slot-grid row's symbols MSB first into a
 //   left-justified, byte-aligned bit-string of cap words.  Replaces
 //   ops/pallas/pack.py::pack_slots_pallas of the JAX package; plain version
-//   ops/bitpack.py::pack_slots.
+//   ops/bitpack.py::pack_slots.  The grid may come as two operands, the
+//   header rows and the slice rows apart (the gop program's form: no copy
+//   of the grid into one tensor); the rows are numbered across both.
 // merge_rows: concatenate R byte-aligned rows into one frame payload, and
 //   merge_append: the same rows appended straight to the sequence buffer
 //   (merge_rows then append_bitstring).  Both replace
@@ -15,10 +17,10 @@
 // Every bit offset depends on all earlier lengths of its row; the TPU's
 // bit-reversed merge tree existed because Mosaic has no scatter.  Here:
 // * a row is cut into tiles of TILE slots, one block each, aligned to 16
-//   bytes in the flattened grid; a thread reads its SPT contiguous slots in
-//   SPT / 4 16-byte loads, all in flight at once, and holds them in
-//   registers, so the slots are read once; a 1920x1152 frame gives 888
-//   blocks, every SM busy;
+//   bytes in its operand's flattened grid; a thread reads its SPT
+//   contiguous slots in SPT / 4 16-byte loads, all in flight at once, and
+//   holds them in registers, so the slots are read once; a 1920x1152 frame
+//   gives 888 blocks, every SM busy;
 // * a block scan gives each thread its bit offset in the tile, and the
 //   tile's bit-string is formed in shared memory (shared atomicOr: symbols
 //   of neighbouring threads may share a word);
@@ -32,9 +34,14 @@
 //   adds the lengths and merges the tails into the 32 bits before the tile;
 // * each output word is written once, with a plain store, by the tile in
 //   which its last bit lies (the row's last tile also writes the final
-//   partial word and the zeros up to cap).  A tile's first word begins with
-//   bits of earlier tiles: the look-back's window of the 32 bits before the
-//   tile supplies them, so no word needs zeroing first and no global atomic;
+//   partial word, zero past the row's bits).  A tile's first word begins
+//   with bits of earlier tiles: the look-back's window of the 32 bits before
+//   the tile supplies them, so no word needs zeroing first and no global
+//   atomic;
+// * the words after a row's last partial word are written only with fill
+//   (the public pack_slots: zeros up to cap, 20.6 MB a 1920x1152 frame at
+//   the bounds' caps).  Without it (pack_rows, the gop program's) they keep
+//   whatever the buffer held: the merge reads no word past a row's bits;
 // * the last block to finish zeroes the status words and the counter, so
 //   the next call on the buffer starts clean (also under graph replay).  It
 //   clears each status word only after it has read that word's inclusive
@@ -50,8 +57,10 @@
 // * The thread of an output word finds the last row that starts before the
 //   word's end by a binary search over the starts, and walks back over the
 //   rows whose bits reach into the word, forming the word from at most two
-//   words of each row with a funnel shift.  Rows are zero past their bit
-//   count, as pack_slots leaves them (the plain version's contract).
+//   words of each row with a funnel shift.  A row's words are read only
+//   up to its last partial word, which must be zero past the row's bits,
+//   as both pack_slots and pack_rows leave it; what lies after that word is
+//   never read (the plain version masks it).
 // * Two modes.  Store (merge_rows) writes every word of the (cap,) payload,
 //   zeros included.  Append (merge_append) reads seq_bits on the device and
 //   ORs each nonzero word into the sequence from word seq_bits >> 5 on,
@@ -94,9 +103,9 @@ __device__ __forceinline__ unsigned long long status_word(uint32_t state, uint32
 }
 
 __global__ void __launch_bounds__(PACK_THREADS) pack_slots_kernel(
-    const uint32_t* __restrict__ slots, int64_t* __restrict__ words,
-    int64_t* __restrict__ bits, LookBack lb, int s, int cap, int tiles_per_row,
-    int n_tiles, int n_slots) {
+    const uint32_t* __restrict__ head, const uint32_t* __restrict__ body,
+    int64_t* __restrict__ words, int64_t* __restrict__ bits, LookBack lb, int n_head,
+    int r, int s, int cap, int tiles_per_row, int n_tiles, bool fill) {
   __shared__ uint32_t str[TILE_WORDS];
   __shared__ int warp_sums[PACK_THREADS / 32];
   __shared__ int s_ticket, s_off, s_last;
@@ -107,7 +116,12 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_slots_kernel(
   __syncthreads();
   const int ticket = s_ticket;
   const int row = ticket / tiles_per_row, k = ticket - row * tiles_per_row;
-  const int r0 = row * s, r1 = r0 + s;      // the row's slots in the flattened grid
+  // rows 0 .. n_head - 1 are head's, the rest body's: each operand is
+  // flattened from its own 16-byte aligned base
+  const bool in_head = row < n_head;
+  const uint32_t* __restrict__ slots = in_head ? head : body;
+  const int n_slots = (in_head ? n_head : r - n_head) * s;
+  const int r0 = (in_head ? row : row - n_head) * s, r1 = r0 + s;  // the row's slots there
 
   // this thread's SPT slots; those outside the row read as empty
   const int a = (r0 & ~3) + k * TILE + SPT * tid;
@@ -218,7 +232,8 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_slots_kernel(
   __syncthreads();
 
   // words whose last bit lies in this tile; the row's last tile also
-  // writes the final partial word and the zeros after it up to cap
+  // writes the final partial word (zero past the row's bits: str is zero
+  // past the tile's) and, with fill, the zeros after it up to cap
   const int off = s_off, end = off + total, pre = off & 31, w0 = off >> 5;
   const bool last = k == tiles_per_row - 1;
   const int w1 = min(cap, last ? (end + 31) >> 5 : end >> 5);
@@ -228,7 +243,8 @@ __global__ void __launch_bounds__(PACK_THREADS) pack_slots_kernel(
     out[w] = __funnelshift_lc(str[j], j ? str[j - 1] : s_win, 32 - pre);
   }
   if (last) {
-    for (int w = max(w1, 0) + tid; w < cap; w += PACK_THREADS) out[w] = 0;
+    if (fill)
+      for (int w = max(w1, 0) + tid; w < cap; w += PACK_THREADS) out[w] = 0;
     if (tid == 0) bits[row] = ((long long)end + 7) & ~7LL;
   }
   // Every block has read all the status words it needs: the last one
@@ -334,20 +350,25 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_rows_kernel(MergeArgs m) 
 
 }  // namespace
 
-// scratch: the look-back buffer of 16 + 8 * capacity bytes, zeroed when
-// allocated and left zeroed by every call (ops/kernels/pack.py)
-extern "C" int mpeg2_pack_slots(const void* slots, void* words, void* bits,
-                                void* scratch, int r, int s, int cap, int capacity,
-                                void* stream) {
+// The r rows: rows 0 .. n_head - 1 of head (n_head, s), then those of body
+// (r - n_head, s), each operand 16-byte aligned.  fill: every row zero from
+// its bits up to cap; else each row's words are written up to its last
+// partial word and no further.  scratch: the look-back buffer of 16 + 8 *
+// capacity bytes, zeroed when allocated and left zeroed by every call
+// (ops/kernels/pack.py)
+extern "C" int mpeg2_pack_slots(const void* head, const void* body, void* words,
+                                void* bits, void* scratch, int n_head, int r, int s,
+                                int cap, int fill, int capacity, void* stream) {
   const int tiles_per_row = (s + 3 + TILE - 1) / TILE;
   const int n_tiles = r * tiles_per_row;
   if (n_tiles == 0) return 0;
-  if (n_tiles > capacity || (long long)r * s > (1LL << 31) - TILE)
+  if (n_tiles > capacity || n_head < 0 || n_head > r ||
+      (long long)std::max(n_head, r - n_head) * s > (1LL << 31) - TILE)
     return (int)cudaErrorInvalidValue;
   const LookBack lb{(unsigned long long*)scratch, (unsigned long long*)scratch + 2};
   pack_slots_kernel<<<n_tiles, PACK_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)slots, (int64_t*)words, (int64_t*)bits, lb, s, cap,
-      tiles_per_row, n_tiles, r * s);
+      (const uint32_t*)head, (const uint32_t*)body, (int64_t*)words, (int64_t*)bits, lb,
+      n_head, r, s, cap, tiles_per_row, n_tiles, fill != 0);
   return (int)cudaGetLastError();
 }
 

@@ -204,9 +204,11 @@ class _GopProgram:
     carry kernel (ops/kernels/carry.py), after the merge, ORs the overflow,
     carries the sequence bit count, writes the frame's bits and GOP position
     at index ``k`` of the per-frame outputs, and advances the GOP position,
-    the frame number and k.  On a card the step is the seven stage kernels,
-    the header rows' cat and the carry kernel, and nothing else.  The
-    per-frame outputs hold ``frames_cap`` frames."""
+    the frame number and k.  The pack kernel reads the header rows and the
+    slice rows where the glue and acsym kernels wrote them, and writes each
+    row only up to its last partial word, all the merge reads.  On a card
+    the step is the seven stage kernels and the carry kernel, and nothing
+    else.  The per-frame outputs hold ``frames_cap`` frames."""
 
     def __init__(self, dev, h, w, *, yr, ur, q_level, row_cap, frame_cap, seq_cap,
                  frames_cap):
@@ -241,9 +243,9 @@ class _GopProgram:
                                               position=self.i_frame)
         quant_zig, *_ = k_transform.transform_recon(y, u, v, mr.pred_y, mr.pred_u, mr.pred_v,
                                                     mr.inter, self.q_level, out=self.prev)
-        slots = entropy.symbolize_frame(quant_zig, mr.inter, mr.mvx, mr.mvy, self.i_frame,
-                                        self.frame_no, self.q_level)
-        row_words, row_bits = k_pack.pack_rows(slots, self.row_cap)
+        hdr, slots = entropy.symbolize_rows(quant_zig, mr.inter, mr.mvx, mr.mvy, self.i_frame,
+                                            self.frame_no, self.q_level)
+        row_words, row_bits = k_pack.pack_rows(hdr, slots, self.row_cap)
         _, _, fbits, frame_ovf = k_pack.merge_append(self.seq_words, self.seq_bits, row_words,
                                                      row_bits, self.frame_cap,
                                                      new_bits=self.new_bits)

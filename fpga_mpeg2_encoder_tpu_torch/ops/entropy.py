@@ -18,10 +18,11 @@ table is compacted through a 5-case perfect key in [0, 144); everything
 outside it is the 24-bit escape, computed arithmetically (RTL:2541-2543).
 
 Output is a slot grid - (2 + mb_rows) rows x S slots - with GOP/picture
-headers as the first two rows.  A slot is one int32 holding the bit pattern
-of the uint32 ``code | len << 27``, so a slot of length >= 16 is negative:
-read slots through `slot_len` and `slot_u32`.  A zero-length slot emits
-nothing, whatever its code.
+headers as the first two rows (`symbolize_frame`), or its two parts apart
+(`symbolize_rows`, the compiled gop program's form).  A slot is one int32
+holding the bit pattern of the uint32 ``code | len << 27``, so a slot of
+length >= 16 is negative: read slots through `slot_len` and `slot_u32`.  A
+zero-length slot emits nothing, whatever its code.
 The non-AC slots and the header rows are formed by ops/kernels/glue.py (its
 plain version is `ac_inputs` and `_header_rows` below), the AC slots by
 ops/kernels/acsym.py (its plain version is `ac_slot_grid`).
@@ -29,7 +30,7 @@ ops/kernels/acsym.py (its plain version is `ac_slot_grid`).
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -227,7 +228,7 @@ def ac_slot_grid(zmod: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def symbolize_frame(
+def symbolize_rows(
     quant_zig: torch.Tensor,  # (nby, nbx, 6, 64) int32, zig-zag coefficient order
     inter: torch.Tensor,      # (nby, nbx) bool
     mvx: torch.Tensor,        # (nby, nbx) int32 half-pel
@@ -238,11 +239,13 @@ def symbolize_frame(
     first_row: int = 0,       # frame MB row of row 0 (slice-row sharding)
     include_headers: bool = True,   # False: slice rows only (the sharded path
                                     # packs the header rows on their own)
-) -> torch.Tensor:
-    """-> (2 + nby, S) int32 slot grid, S = 3 + 394 * nbx; (nby, S) without
-    the header rows.  The glue kernel forms everything but the AC symbols
-    (ac_inputs and _header_rows are its plain version), the acsym kernel
-    the AC symbols."""
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """-> (the header rows (2, S) int32, or None without include_headers;
+    the slice rows (nby, S) int32), S = 3 + 394 * nbx: the slot grid's two
+    parts as the glue and acsym kernels write them, each its own tensor.
+    The glue kernel forms everything but the AC symbols (ac_inputs and
+    _header_rows are its plain version), the acsym kernel the AC symbols.
+    The gop program packs the two as they are (kernels.pack.pack_rows)."""
     # imported here: the kernel wrappers import this module
     from .kernels.acsym import ac_slot_grid as ac_slot_grid_dispatch
     from .kernels.glue import symbol_glue
@@ -250,10 +253,16 @@ def symbolize_frame(
     s = HDR_SLOTS + SLOTS_PER_MB * inter.shape[1]
     zmod, small, hdr = symbol_glue(quant_zig, inter, mvx, mvy, i_frame, frame_no, q_level,
                                    first_row, s if include_headers else None)
-    slice_slots = ac_slot_grid_dispatch(zmod, small)
-    if not include_headers:
-        return slice_slots
-    return torch.cat([hdr, slice_slots], dim=0)
+    return hdr, ac_slot_grid_dispatch(zmod, small)
+
+
+def symbolize_frame(quant_zig, inter, mvx, mvy, i_frame, frame_no, q_level: int,
+                    first_row: int = 0, include_headers: bool = True) -> torch.Tensor:
+    """symbolize_rows' two parts as one (2 + nby, S) int32 slot grid, the
+    header rows first; (nby, S) without them."""
+    hdr, slice_slots = symbolize_rows(quant_zig, inter, mvx, mvy, i_frame, frame_no, q_level,
+                                      first_row, include_headers)
+    return slice_slots if hdr is None else torch.cat([hdr, slice_slots], dim=0)
 
 
 def ac_inputs(quant_zig: torch.Tensor, inter: torch.Tensor, mvx: torch.Tensor,

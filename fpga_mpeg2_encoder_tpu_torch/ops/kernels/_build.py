@@ -54,7 +54,7 @@ _SIGNATURES = {
     "mpeg2_transform": [_P] * 11 + [_I, _I, _I, _P],
     "mpeg2_transform_stage": [_P] * 4 + [_I, _I, _I, _P],
     "mpeg2_acsym": [_P, _P, _P, _I, _I, _P],
-    "mpeg2_pack_slots": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mpeg2_pack_slots": [_P] * 5 + [_I] * 6 + [_P],
     "mpeg2_merge_rows": [_P] * 7 + [_I, _I, _I, ctypes.c_longlong, _P],
     "mpeg2_me_fused": [_P] * 11 + [_I] * 7 + [_P],
     "mpeg2_me_luma": [_P] * 7 + [_I] * 7 + [_P],

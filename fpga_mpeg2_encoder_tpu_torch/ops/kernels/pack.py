@@ -6,8 +6,10 @@ pack_symbols replaces pack_symbols_pallas, which on the TPU as here forms the
 slots and calls the pack kernel, and launches nothing of its own.
 merge_append is merge_rows followed by bitpack.append_bitstring, the frame
 loop's per-frame append, in one launch of the same merge kernel.  pack_rows
-is pack_slots without its overflow flag, for the compiled gop program,
-whose carry kernel tests the row bits itself.
+is the compiled gop program's pack_slots: the header rows and the slice rows
+as two operands (no copy of them into one grid), rows defined only up to
+their last partial word (no zeros written up to the cap) and no overflow
+flag (the program's carry kernel tests the row bits itself).
 
 pack_slots is bound by reading the slots (at 1920x1152: 3.5 M int32 slots,
 14 MB) and writing the words.  Each row is cut into tiles of 4096 slots, one
@@ -15,10 +17,12 @@ block of 512 threads each (888 blocks at 1920x1152): 8 slots a thread in
 two 16-byte loads held in registers, a block scan and the tile's bit-string
 in shared memory, and the tile's offset in its row from a single-pass
 chained scan (decoupled look-back), warp 0 reading 32 predecessors' status
-words at once.  Each output word is written
-once by a plain store.  The look-back's state lives in a buffer per device
-and stream, zeroed when it is allocated; the kernel's last block leaves it
-zeroed for the next call.  A buffer is never freed: a CUDA graph captured
+words at once.  Each output word is written once by a plain store; a row's
+last tile writes its last partial word and, for pack_slots alone, the zeros
+after it up to the cap (at 1920x1152 and the bounds' caps 20.6 MB, more
+than the 14 MB of slots read).  The look-back's state lives in a buffer per
+device and stream, zeroed when it is allocated; the kernel's last block
+leaves it zeroed for the next call.  A buffer is never freed: a CUDA graph captured
 with it holds its address (runtime/graphs.py), so a call that needs more
 tiles gets a larger buffer and the old one is kept.  The merge kernel gives each output word one
 thread, in a fixed grid of two blocks per SM: every block scans the row
@@ -72,31 +76,50 @@ def _lookback_buffer(device: torch.device, tiles: int) -> Tuple[torch.Tensor, in
     return buf, buf.numel() - 2
 
 
+def _launch(head: Optional[torch.Tensor], body: torch.Tensor, cap_words: int,
+            fill: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the pack kernel over the rows of ``head`` (none without
+    it), then those of ``body``: (words, bits)."""
+    rb, s = body.shape
+    _build.check(body, "slots", torch.int32, (rb, s), align=16)
+    rh = 0
+    if head is not None:
+        rh = head.shape[0]
+        _build.check(head, "header rows", torch.int32, (rh, s), align=16)
+    r, dev = rh + rb, body.device
+    words = torch.empty((r, cap_words), dtype=torch.int64, device=dev)
+    bits = torch.empty((r,), dtype=torch.int64, device=dev)
+    buf, capacity = _lookback_buffer(dev, r * ((s + 3 + TILE - 1) // TILE))
+    _build.launch("mpeg2_pack_slots", "pack_slots", dev, body if head is None else head,
+                  body, words, bits, buf, rh, r, s, cap_words, int(fill), capacity)
+    return words, bits
+
+
 def pack_slots(slots: torch.Tensor, cap_words: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """slots (R, S) int32 (the uint32 pattern) -> (words (R, cap_words) int64,
-    bits (R,) int64 byte-aligned, overflow () bool); see bitpack.pack_slots.
-    The slots' data must be 16-byte aligned (the kernel's vector loads)."""
+    each row zero from its bits up to cap_words, bits (R,) int64
+    byte-aligned, overflow () bool); see bitpack.pack_slots.  The slots'
+    data must be 16-byte aligned (the kernel's vector loads)."""
     if _build.on_cpu(slots):
         return bitpack.pack_slots(slots, cap_words)
-    words, bits = pack_rows(slots, cap_words)
+    words, bits = _launch(None, slots, cap_words, fill=True)
     return words, bits, (bits > 32 * cap_words).any()
 
 
-def pack_rows(slots: torch.Tensor, cap_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """pack_slots without its overflow flag, one launch and no other
-    operation: (words, bits).  A row overflows where its bits exceed 32 *
-    cap_words; the compiled gop program's carry kernel tests that."""
-    if _build.on_cpu(slots):
-        return bitpack.pack_slots(slots, cap_words)[:2]
-    r, s = slots.shape
-    _build.check(slots, "slots", torch.int32, (r, s), align=16)
-    words = torch.empty((r, cap_words), dtype=torch.int64, device=slots.device)
-    bits = torch.empty((r,), dtype=torch.int64, device=slots.device)
-    buf, capacity = _lookback_buffer(slots.device, r * ((s + 3 + TILE - 1) // TILE))
-    _build.launch("mpeg2_pack_slots", "pack_slots", slots.device,
-                  slots, words, bits, buf, r, s, cap_words, capacity)
-    return words, bits
+def pack_rows(head: torch.Tensor, slots: torch.Tensor, cap_words: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows of ``head`` (H, S) then those of ``slots`` (R, S), both int32
+    and 16-byte aligned, packed as pack_slots packs them stacked, in one
+    launch and no other operation: (words (H + R, cap_words), bits).  On a
+    card a row's words are defined only up to its last partial word (zero
+    past the row's bits within it, as merge_rows and merge_append read
+    them); the words after it keep what the buffer held.  No overflow
+    flag: a row overflows where its bits exceed 32 * cap_words, which the
+    compiled gop program's carry kernel tests."""
+    if _build.on_cpu(head, slots):
+        return bitpack.pack_slots(torch.cat([head, slots]), cap_words)[:2]
+    return _launch(head, slots, cap_words, fill=False)
 
 
 def pack_symbols(codes: torch.Tensor, lens: torch.Tensor, cap_words: int

@@ -130,11 +130,13 @@ def main():
             check = lambda: torch.equal(out, want_grid)
         else:
             fn = lib.mpeg2_pack_slots
-            fn.argtypes, fn.restype = [P, P, P, P, I, I, I, I, P], I
+            fn.argtypes, fn.restype = [P] * 5 + [I] * 6 + [P], I
             words = torch.empty((r, cap), dtype=torch.int64, device=dev)
             bits = torch.empty((r,), dtype=torch.int64, device=dev)
-            call = lambda: fn(slots.data_ptr(), words.data_ptr(), bits.data_ptr(),
-                              lookback.data_ptr(), r, s, cap, 65536, stream())
+            # the public pack_slots' form: one operand, rows zero up to cap
+            call = lambda: fn(slots.data_ptr(), slots.data_ptr(), words.data_ptr(),
+                              bits.data_ptr(), lookback.data_ptr(), 0, r, s, cap, 1, 65536,
+                              stream())
             check = lambda: torch.equal(words, want_pack[0]) and torch.equal(bits, want_pack[1])
         if call() != 0:
             raise SystemExit(f"{source} {name}: launch failed")

@@ -149,6 +149,16 @@ MUTANTS = {
         ("cap_test", "const int w1 = min(cap, last ?", "const int w1 = (last ?"),
         ("zero_fill_cap", "w < cap; w += PACK_THREADS) out[w] = 0;",
          "w < cap - 1; w += PACK_THREADS) out[w] = 0;"),
+        ("fill_skipped", "    if (fill)\n", "    if (false)\n"),
+        # the two operands (the gop program's pack_rows) and its rows written
+        # only up to their last partial word
+        ("header_row_from_slices", "const uint32_t* __restrict__ slots = in_head ? head : body;",
+         "const uint32_t* __restrict__ slots = body;"),
+        ("slice_row0_from_header", "const bool in_head = row < n_head;",
+         "const bool in_head = row <= n_head;"),
+        ("last_partial_word_unwritten", "last ? (end + 31) >> 5 : end >> 5", "end >> 5"),
+        ("bits_past_end_kept", "i < (total + 31) / 32 + 2; i += PACK_THREADS) str[i] = 0;",
+         "i < (total + 31) / 32; i += PACK_THREADS) str[i] = 0;"),
         # the merge kernel (merge_rows and merge_append)
         ("merge_row_scan", "if (i < m.r) start[i + 1] = before + x;",
          "if (i < m.r) start[i + 1] = before + x - own;"),

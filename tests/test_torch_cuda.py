@@ -1572,16 +1572,109 @@ def test_transform_kernel_recon_in_place(dev):
         k_tf.transform_recon(*args, out=(y, out[1], out[2]))
 
 
-def test_pack_rows_equals_pack_slots(dev):
-    """pack_rows is pack_slots without its overflow flag: the same words
-    and bits from one launch of the pack kernel, at a cap that overflows
-    and one that does not."""
-    slots = _slots(dev, 6, 3 + 394 * 26, 7)
+def _under_bits(words, bits):
+    """The row words under each row's bits (its last partial word
+    included), zero after them: all that pack_rows defines."""
+    cols = torch.arange(words.shape[1], device=words.device)
+    return torch.where(cols < (bits[:, None] + 31) // 32, words, 0)
+
+
+def _freed_poisoned(dev, shape):
+    """Free a block of ``shape`` int64 words, every bit set, into the
+    caching allocator, where the next allocation of that shape on this
+    stream lands; returns its address."""
+    t = torch.full(shape, -1, dtype=torch.int64, device=dev)
+    ptr = t.data_ptr()
+    del t
+    return ptr
+
+
+@pytest.mark.parametrize("s", [3 + 394 * 26, 3 * TILE - 3, 2 * TILE + 1])
+def test_pack_rows_equals_pack_slots(dev, s):
+    """pack_rows packs the header rows and the slice rows, two operands, as
+    pack_slots packs them stacked: the same words under each row's bits and
+    the same bits, from one launch of the pack kernel, at a cap that
+    overflows and one that does not.  The widths put the tiles of the
+    operands' rows at other offsets than in the stacked grid."""
+    slots = _slots(dev, 6, s, 7 + s)
+    head, body = slots[:2].clone(), slots[2:].clone()
     for cap in (16, 4096):
         want = k_pack.pack_slots(slots, cap)
-        got = _launched("pack_slots", lambda: k_pack.pack_rows(slots, cap))
-        _equal(got, want[:2])
+        words, bits = _launched("pack_slots", lambda: k_pack.pack_rows(head, body, cap))
+        assert torch.equal(bits, want[1])
+        assert torch.equal(_under_bits(words, bits), _under_bits(want[0], want[1]))
         assert bool(want[2]) is (cap == 16)
+
+
+def _frame_grid(dev, w, h, seed):
+    """A (nby, S) grid of slice rows at W x H, sparse as a real frame, whose
+    rows 0, 1 and 2 end on a 32-bit boundary, one byte into a word and one
+    bit into a word (padded to the byte): their last two slots set the
+    rows' lengths mod 32."""
+    nbx, nby = w // 16, h // 16
+    s = entropy.HDR_SLOTS + entropy.SLOTS_PER_MB * nbx
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 25, (nby, s)).astype(np.int64)
+    lens[rng.random((nby, s)) >= 0.03] = 0
+    for row, rem in ((0, 0), (1, 8), (2, 1)):
+        lens[row, -2:] = 0
+        need = (rem - int(lens[row].sum())) % 32
+        t = need if need >= 2 else need + 32
+        lens[row, -2:] = (t // 2, t - t // 2)
+    codes = rng.integers(0, 1 << 24, (nby, s)) & ((1 << lens) - 1)
+    assert (lens[:3].sum(1) % 32).tolist() == [0, 8, 1]
+    return torch.as_tensor((codes | lens << 27).astype(np.uint32).view(np.int32), device=dev)
+
+
+@pytest.mark.parametrize("w,h", [(1920, 1152), (720, 576)])
+@pytest.mark.parametrize("i_frame", [0, 1])
+def test_pack_rows_poisoned_tails_merge_as_plain(dev, w, h, i_frame):
+    """The gop program's rows at the bounds' row cap, in a buffer whose
+    words were all ones, with every word past each row's last partial word
+    set to 0xFFFFFFFF again afterwards: merge_append of them equals the
+    plain merge_append of the plain rows, word for word, at every stage of
+    the sequence's last word.  The header rows are the glue kernel's: a
+    P-frame's GOP row is empty (i_frame 1); slice rows end on a 32-bit
+    boundary, a byte into a word and a bit into one."""
+    row_cap, frame_cap = M.bound_caps(w, h)
+    body = _frame_grid(dev, w, h, w + i_frame)
+    head = k_glue.header_rows(i_frame, 1441, body.shape[1], dev)
+    r = head.shape[0] + body.shape[0]
+    ptr = _freed_poisoned(dev, (r, row_cap))
+    words, bits = _launched("pack_slots", lambda: k_pack.pack_rows(head, body, row_cap))
+    assert words.data_ptr() == ptr
+    pw, pb, _ = bitpack.pack_slots(torch.cat([head, body]), row_cap)
+    assert torch.equal(bits, pb)
+    assert (int(bits[0]) == 0) is bool(i_frame) and int(bits[1]) > 0
+    assert [int(b) % 32 for b in bits[2:5]] == [0, 8, 8]
+    assert torch.equal(_under_bits(words, bits), pw)
+    cols = torch.arange(row_cap, device=dev)
+    words = torch.where(cols < (bits[:, None] + 31) // 32, words, 0xFFFFFFFF)
+    rng = np.random.default_rng(w)
+    for seq_bits in (32 * 7, 32 * 7 + 13):
+        seq = torch.as_tensor(random_sequence(rng, frame_cap + 64, seq_bits), device=dev)
+        sb = torch.tensor(seq_bits, device=dev)
+        got = _launched("merge_rows", lambda: k_pack.merge_append(seq.clone(), sb, words, bits,
+                                                                 frame_cap))
+        want = bitpack.merge_append(seq.clone(), sb, pw, pb, frame_cap)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), seq_bits
+
+
+def test_pack_slots_rows_zero_to_cap(dev):
+    """The public pack_slots keeps its rows whole: in a buffer whose words
+    were all ones, every word from a row's bits up to the cap is zero, and
+    the words and bits equal the plain version's."""
+    slots = _slots(dev, 6, 3 + 394 * 26, 11, density=0.05)
+    cap = 4096
+    ptr = _freed_poisoned(dev, (6, cap))
+    words, bits, _ = _launched("pack_slots", lambda: k_pack.pack_slots(slots, cap))
+    assert words.data_ptr() == ptr
+    for g, x in zip((words, bits), bitpack.pack_slots(slots, cap)):
+        assert torch.equal(g, x)
+    cols = torch.arange(cap, device=dev)
+    assert not bool(((cols >= (bits[:, None] + 31) // 32) & (words != 0)).any())
+    assert int(bits.max()) < 32 * cap // 2
 
 
 def _gop_chunks(dev, w, h, pframes, i0, chunks, seed):
@@ -1681,10 +1774,11 @@ def test_graph_carry_overflow_retry_at_small_caps(dev, over):
 
 
 def test_graph_carry_me_pack_replay_device_ops(dev, tmp_path):
-    """A replay of the gop program's step is 9 device operations in the
+    """A replay of the gop program's step is 8 device operations in the
     profiler's trace, those inside its ``replay.gop`` span on the device:
     the seven stage kernels (the subsample's stack entry, which reads the
-    frame in place), the header rows' cat and the carry kernel; no copy,
+    frame in place; the pack kernel, which reads the header rows and the
+    slice rows where they were written) and the carry kernel; no cat, copy,
     fill or small elementwise kernel.  Four replays are traced (frames 2-5
     of the stack the program was handed, a slice of a longer one), and the
     fullest is held to that (the profiler now and then drops some of a
@@ -1717,13 +1811,14 @@ def test_graph_carry_me_pack_replay_device_ops(dev, tmp_path):
     ops = [(e["ts"], e["name"].replace("(anonymous namespace)::", "").split("(")[0])
            for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     per_replay = [sorted(n for t, n in ops if a <= t <= b) for a, b in spans]
-    assert per_replay and all(len(r) <= 9 for r in per_replay), per_replay
+    assert per_replay and all(len(r) <= 8 for r in per_replay), per_replay
     fullest = max(per_replay, key=len)
-    assert len(fullest) == 9, per_replay
+    assert len(fullest) == 8, per_replay
     for name in ("subsample_kernel_stack", "me_fused_kernel", "transform_kernel",
-                 "glue_kernel", "CatArrayBatchedCopy", "acsym_kernel", "pack_slots_kernel",
-                 "merge_rows_kernel", "gop_carry_kernel"):
+                 "glue_kernel", "acsym_kernel", "pack_slots_kernel", "merge_rows_kernel",
+                 "gop_carry_kernel"):
         assert sum(name in op for op in fullest) == 1, (name, fullest)
+    assert not any("CatArrayBatchedCopy" in op for r in per_replay for op in r), per_replay
     graphs.clear()
 
 

@@ -78,6 +78,22 @@ def test_symbolize_matches_jax(acsym_impl, nbx, i_frame, frame_no):
         assert np.array_equal(_masked(got), _masked(want)), impl
 
 
+@pytest.mark.parametrize("i_frame,first_row,include_headers", [(0, 0, True), (3, 0, True),
+                                                                 (3, 5, False)])
+def test_symbolize_rows_are_the_grid_apart(i_frame, first_row, include_headers):
+    """symbolize_rows gives symbolize_frame's grid in two tensors: the two
+    header rows (none without include_headers) and the slice rows."""
+    args = [torch.from_numpy(a) for a in _symbols(3, 5, 7 + i_frame)]
+    kw = dict(first_row=first_row, include_headers=include_headers)
+    hdr, rows = entropy.symbolize_rows(*args, i_frame, 1500, 2, **kw)
+    grid = entropy.symbolize_frame(*args, i_frame, 1500, 2, **kw)
+    assert (hdr is None) is not include_headers
+    parts = [rows] if hdr is None else [hdr, rows]
+    assert [tuple(p.shape) for p in parts] == [(2, grid.shape[1])] * (hdr is not None) \
+        + [(3, grid.shape[1])]
+    assert torch.equal(torch.cat(parts), grid)
+
+
 def test_ac_slot_grid_zero_slots_and_wrapper_on_cpu():
     """The plain acsym writes zero at every zero coefficient's AC slot, keeps
     the non-AC slots of `small` as they are, and the wrapper runs it on CPU

@@ -158,6 +158,21 @@ def test_wrappers_run_plain_versions_on_cpu_and_refuse_other_devices():
         port_kernel.merge_rows(w, b.to("meta"), 1024)
 
 
+@pytest.mark.parametrize("cap", [4, 256])
+def test_pack_rows_on_cpu_packs_the_stacked_rows(cap):
+    """pack_rows (the gop program's entry: header rows and slice rows apart)
+    runs the plain version on the stacked rows on CPU tensors, without a
+    launch; a cap of 4 words makes rows overflow."""
+    slots = torch.from_numpy(_slots(5, 301, 4))
+    before = dict(_build.LAUNCHES)
+    w, b = port_kernel.pack_rows(slots[:2], slots[2:], cap)
+    assert _build.LAUNCHES == before
+    pw, pb, po = bitpack.pack_slots(slots, cap)
+    assert torch.equal(w, pw) and torch.equal(b, pb) and bool(po) is (cap == 4)
+    with pytest.raises(ValueError, match="several devices"):
+        port_kernel.pack_rows(slots[:2], slots[2:].to("meta"), cap)
+
+
 def test_pack_wrapper_tile_matches_kernel_source():
     """The wrapper sizes the look-back buffer by TILE slots a tile: it must
     be the kernel's PACK_THREADS * SPT."""
