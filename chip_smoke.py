@@ -7,7 +7,8 @@ Phases, one line each (any failure raises and the exit code is non-zero):
 1. device: card name and power limit; fails without a CUDA device;
 2. build: compiles the kernels of fpga_mpeg2_encoder_tpu_torch/csrc and
    prints each kernel's registers and spills, and the count of VABSDIFF4
-   (the motion search's byte-SIMD instruction) in me_fused_kernel's SASS;
+   (the motion search's byte-SIMD instruction) in the SASS of each
+   me_fused_kernel (the +-4 and the +-6 window);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    1920x1152, 720x576 (chroma 360 wide, 8 mod 16), 416x64 and 64x64 shapes
    of bench.py content, exact equality (an integer codec: the tolerance is
@@ -24,8 +25,10 @@ Phases, one line each (any failure raises and the exit code is non-zero):
    at a cap and clamped; the
    gop program's carry kernel at the GOP wrap and with a row or the frame
    over its cap (untimed: a launch's worth of work).  At
-   1920x1152 both are timed two ways: device time from torch.profiler (the
-   kernel alone; all the plain version's kernels), and time per call from
+   1920x1152 (and the fused motion kernel at 720x576 with the sd cells'
+   vector_level 2 as well) both are timed two ways: device time from
+   torch.profiler (the kernel alone; all the plain version's kernels), and
+   time per call from
    CUDA events around back-to-back calls, which includes the host's cost
    where the host is the slower side;
 4. stages: the time of each stage of one 1920x1152 P-frame, the subsample
@@ -130,6 +133,7 @@ import numpy as np
 SOAK_BYTES = 16110848
 SOAK_SHA256 = "d0f0b0ec9f2fabb3a581369b8ef410dbf0660881d46c9a0f9cfbd0ad6ddfa1d8"
 W, H, NF = 1920, 1152, 96
+SD = (720, 576)                # the sd cells' frame, where phase 3 times F too
 CAPS = dict(row_cap=4096, frame_cap=262144)
 SEQ_CAP = 8388608
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA's data sheet
@@ -427,20 +431,22 @@ def main():
           flush=True)
     for ln in ptxas:
         print(f"  ptxas: {ln}")
-    ops = [op.split()[1] if op.startswith("@") else op.split()[0]
-           for op in _build.sass(lib, "me_fused_kernel")]
-    vabs = [k for k, op in enumerate(ops) if op.startswith("VABSDIFF4")]
-    if not vabs:
-        raise AssertionError("me_fused_kernel: no VABSDIFF4 in its SASS")
-    print(f"2 sass me_fused_kernel: {len(vabs)} VABSDIFF4 of {len(ops)} instructions; "
-          f"{vabs[-1] - vabs[0] + 1} instructions from the first VABSDIFF4 to the last",
-          flush=True)
+    # me_fused_kernel<YRC>: the +-4 window (vector_level 1, 2) and the +-6 (3)
+    for yrc in (4, 6):
+        ops = [op.split()[1] if op.startswith("@") else op.split()[0]
+               for op in _build.sass(lib, f"me_fused_kernelILi{yrc}E")]
+        vabs = [k for k, op in enumerate(ops) if op.startswith("VABSDIFF4")]
+        if not vabs:
+            raise AssertionError(f"me_fused_kernel<{yrc}>: no VABSDIFF4 in its SASS")
+        print(f"2 sass me_fused_kernel<{yrc}>: {len(vabs)} VABSDIFF4 of {len(ops)} "
+              f"instructions; {vabs[-1] - vabs[0] + 1} instructions from the first "
+              f"VABSDIFF4 to the last", flush=True)
 
     # ---- 3. kernels against their plain versions --------------------------------
     starts[3] = time.perf_counter()
     cfg = EncoderConfig(xl=7, yl=7, vector_level=3, q_level=2)
     yr, ur = cfg.yr, cfg.ur
-    timing = {}
+    timing, timing_sd = {}, {}    # at 1920x1152; F at 720x576, vector_level 2
     gen = torch.Generator(device="cpu").manual_seed(0)
 
     def carry_call(fn, rows, i_frame, over):
@@ -525,6 +531,16 @@ def main():
                                mvy, ur))),
                            (nbytes(u0, v0, imap, mvx, mvy) + chroma_out,
                             n_inter * 128 * 4)))
+        if (w, h) == SD:
+            # F at the sd cells' search range (vector_level 2), timed as well
+            yr2 = 2 * 2
+            checks.append(("P vl2", "me_fused",
+                           lambda: k_me.motion_estimate_fused(y1, y0, u0, v0, False, yr2, 2,
+                                                              as_plane=True),
+                           lambda: tuple(motion.estimate_and_predict_planes(
+                               y1, u1, v1, y0, u0, v0, False, yr2, 2)),
+                           (me_in + me_out,
+                            n_mb * 256 * ((2 * yr2 + 1) ** 2 + 11) // SAD_PER_OP)))
         for is_i in (False, True):
             split = k_me.motion_estimate(y1, y0, is_i, yr, as_plane=True)
             split += k_me.chroma_pred(u0, v0, *split[:3], ur, as_plane=True)
@@ -667,12 +683,15 @@ def main():
                 if not bool(flag):
                     raise AssertionError(f"{kname} {w}x{h} {label}: no overflow")
             times = ""
-            if (w, h) == (W, H) and work is not None and "overflow" not in label:
+            if ((w, h) == (W, H) or label == "P vl2") and work is not None \
+                    and "overflow" not in label:
                 b_ms, b_by = bound(*work)
                 t = dict(ms=device_ms(kern, KERNEL_SYMBOLS[kname]), plain_ms=device_ms(plain),
                          call_ms=cuda_ms(kern), plain_call_ms=cuda_ms(plain),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
-                if kname not in timing or label in ("P", "P maps", TIMED_APPEND):
+                if label == "P vl2":
+                    timing_sd[kname] = t
+                elif kname not in timing or label in ("P", "P maps", TIMED_APPEND):
                     timing[kname] = (t, err)
                 times = (f"  kernel {t['ms']:.4f} ms on device ({t['call_ms']:.4f} per call)"
                          f"  plain {t['plain_ms']:.4f} ms on device ({t['plain_call_ms']:.4f}"
@@ -1339,6 +1358,8 @@ def main():
         row = {"name": kname, "route": "cuda", "source": SOURCES[kname],
                "replaces": REPLACES[kname], "launches": launches_b.get(kname, 0),
                "max_abs_err": err, **t}
+        if kname in timing_sd:
+            row["720x576 vl2"] = timing_sd[kname]
         if kname in REDESIGNED:
             row["redesigned"] = REDESIGNED[kname]
         if kname in XLA_STAGES:

@@ -56,8 +56,8 @@ _SIGNATURES = {
     "mpeg2_acsym": [_P, _P, _P, _I, _I, _P],
     "mpeg2_pack_slots": [_P] * 5 + [_I] * 6 + [_P],
     "mpeg2_merge_rows": [_P] * 7 + [_I, _I, _I, ctypes.c_longlong, _P],
-    "mpeg2_me_fused": [_P] * 11 + [_I] * 7 + [_P],
-    "mpeg2_me_luma": [_P] * 7 + [_I] * 7 + [_P],
+    "mpeg2_me_fused": [_P] * 11 + [_I] * 8 + [_P],
+    "mpeg2_me_luma": [_P] * 7 + [_I] * 8 + [_P],
     "mpeg2_chroma_pred": [_P] * 7 + [_I] * 4 + [_P],
     "mpeg2_glue": [_P] * 15 + [_I] * 5 + [_P],
     "mpeg2_subsample": [_P] * 4 + [_I, _I, _P],

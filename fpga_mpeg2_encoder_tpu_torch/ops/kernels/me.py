@@ -17,15 +17,17 @@ What bounds the search on the card is integer throughput: at 1920x1152,
 yr = 6, a P-frame is 8640 x 169 x 256 = 374 M absolute-difference adds for
 the full-pel search alone, four to a byte-SIMD VABSDIFF4 instruction
 (__vsadu4), against 8.3 MB of input and uint8 output.  The kernel runs one
-block of 128 threads per macroblock with the block and a 30-row x 32-byte
-reference window in shared memory as bytes.  Thread (dy, two block rows)
-keeps its window rows in registers and forms the row SADs of all 13 dx from
-them with funnel shifts and VABSDIFF4; a shuffle sum over the rows gives
-each candidate's SAD.  Two pixels a thread then run the half-pel stage and
-one warp the decision, so every reference pixel is read from device memory
-once per block and nothing between the search and the prediction leaves the
-SM.  An I-frame skips the search, as its result (intra, mv 0, prediction
-128) does not depend on it.  Predictions are uint8.
+warp a macroblock, a block a strip of ``strip_width`` macroblocks of one
+macroblock row whose reference window its warps share in shared memory.
+Lane (dx, group of block rows) keeps its rows in registers and adds each
+window row at its dx against every row that meets it in range; a shuffle
+sum over the groups and the warp's minimum key give the full-pel vector.
+The half-pel candidates are formed four pixels to a word, the decision is
+the warp's, and U and V come from the strip's chroma window, so every
+reference pixel is read from device memory once a strip and nothing
+between the search and the prediction leaves the SM.  An I-frame skips the
+search, as its result (intra, mv 0, prediction 128) does not depend on it,
+and stores it as whole words.  Predictions are uint8.
 
 Every function takes the JAX functions' arguments: ``halo`` says the
 reference planes carry 8 luma / 4 chroma halo rows each side (the band form
@@ -36,6 +38,7 @@ ops/motion.py run instead.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +47,30 @@ from .. import entropy, motion
 from . import _build
 
 MAX_YR = 6   # csrc/me.cu's window size: vector_level <= 3
+MAX_STRIP = 4   # csrc/me.cu: macroblocks (warps) a block
+
+
+def strip_width(nby: int, nbx: int, sms: int) -> int:
+    """Macroblocks a block of the motion kernels (F and L) takes, from the
+    frame's macroblock grid and the card's SM count: the widest strip of 4,
+    2 or 1 macroblocks whose grid still gives every SM four blocks, so that
+    a small frame keeps every SM busy while a large one shares each window
+    across a strip."""
+    s = MAX_STRIP
+    while s > 1 and nby * -(-nbx // s) < 4 * sms:
+        s //= 2
+    return s
+
+
+def _strip(nby: int, nbx: int, dev) -> int:
+    """strip_width on ``dev``'s card."""
+    return strip_width(nby, nbx, _sm_count(dev.index))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device() if index is None else index).multi_processor_count
 
 
 def _meta(nby: int, nbx: int, dev):
@@ -79,7 +106,7 @@ def _check_planes(nby: int, nbx: int, halo: bool, luma=None, chroma=(),
     """Check the reference planes' shapes: nby*bs rows plus the halo rows."""
     if luma is not None:
         _build.check(luma, "prev_y", torch.uint8,
-                     (nby * 16 + (16 if halo else 0), nbx * 16), align=8)
+                     (nby * 16 + (16 if halo else 0), nbx * 16), align=16)
     for t, name in chroma:
         _build.check(t, name, torch.uint8, (nby * 8 + (8 if halo else 0), nbx * 8),
                      align=chroma_align)
@@ -111,8 +138,10 @@ def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe, yr: int,
         return tuple(motion.estimate_and_predict_local(
             cur_y, prev_y, prev_u, prev_v, is_iframe, yr, ur, first_mb_row,
             total, as_plane))
-    _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16), align=8)
-    _check_planes(nby, nbx, halo, prev_y, ((prev_u, "prev_u"), (prev_v, "prev_v")))
+    _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16), align=16)
+    # the kernel reads the luma planes in 16-byte words, the chroma in 8-byte
+    _check_planes(nby, nbx, halo, prev_y, ((prev_u, "prev_u"), (prev_v, "prev_v")),
+                  chroma_align=8)
     dev = cur_y.device
     if position is None:
         position = _gop_position(is_iframe, dev)
@@ -123,7 +152,7 @@ def motion_estimate_fused(cur_y, prev_y, prev_u, prev_v, is_iframe, yr: int,
                   _pred(nby, nbx, 8, as_plane, dev))
     _build.launch("mpeg2_me_fused", "me_fused", dev, cur_y, prev_y, prev_u, prev_v,
                   position, inter, mvx, mvy, py, pu, pv, nby, nbx,
-                  yr, first_mb_row, total, int(halo), int(as_plane))
+                  yr, first_mb_row, total, int(halo), int(as_plane), _strip(nby, nbx, dev))
     return inter, mvx, mvy, py, pu, pv
 
 
@@ -138,14 +167,14 @@ def motion_estimate(cur_y, prev_y, is_iframe, yr: int, first_mb_row: int = 0,
         inter, mvx, mvy, pred_y = motion.estimate_luma(
             cur_y, prev_y, is_iframe, yr, first_mb_row, total)
         return inter, mvx, mvy, motion.to_planes(pred_y) if as_plane else pred_y
-    _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16), align=8)
+    _build.check(cur_y, "cur_y", torch.uint8, (nby * 16, nbx * 16), align=16)
     _check_planes(nby, nbx, halo, prev_y)
     dev = cur_y.device
     inter, mvx, mvy = _meta(nby, nbx, dev)
     py = _pred(nby, nbx, 16, as_plane, dev)
     _build.launch("mpeg2_me_luma", "me_luma", dev, cur_y, prev_y,
                   _gop_position(is_iframe, dev), inter, mvx, mvy, py, nby, nbx, yr,
-                  first_mb_row, total, int(halo), int(as_plane))
+                  first_mb_row, total, int(halo), int(as_plane), _strip(nby, nbx, dev))
     return inter, mvx, mvy, py
 
 

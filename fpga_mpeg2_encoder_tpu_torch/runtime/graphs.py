@@ -28,6 +28,7 @@ size) makes the capture fail.
 """
 from __future__ import annotations
 
+import gc
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable
 
@@ -84,13 +85,27 @@ class Step:
                 with torch.cuda.stream(stream), _build.tally_into({}):
                     self._fn()
                 graph, tally = torch.cuda.CUDAGraph(), {}
-                # thread_local: what this thread does is checked as strictly,
-                # but another thread (NCCL's watchdog querying its events)
-                # does not invalidate the capture
-                with _build.tally_into(tally):
-                    with torch.cuda.graph(graph, stream=stream,
-                                          capture_error_mode="thread_local"):
-                        outputs = self._fn()
+                # No collection during the capture: a graph that the
+                # collector frees (a program dropped in a reference cycle)
+                # resets, and a reset's frees invalidate a capture.  The
+                # garbage there is goes first: torch.cuda.graph collects
+                # only under torch.compiler.config.force_cudagraph_gc, off
+                # by default (torch 2.11, torch/cuda/graphs.py,
+                # graph.__enter__).
+                gc.collect()
+                collecting = gc.isenabled()
+                gc.disable()
+                try:
+                    # thread_local: what this thread does is checked as
+                    # strictly, but another thread (NCCL's watchdog querying
+                    # its events) does not invalidate the capture
+                    with _build.tally_into(tally):
+                        with torch.cuda.graph(graph, stream=stream,
+                                              capture_error_mode="thread_local"):
+                            outputs = self._fn()
+                finally:
+                    if collecting:
+                        gc.enable()
             finally:
                 # a failed capture can leave the side stream current
                 torch.cuda.set_stream(current)

@@ -31,24 +31,35 @@ WORK = os.path.join(PKG, "build", "mutants")
 # mutant)]); each text occurs once in its source
 MUTANTS = {
     "me.cu": ("me_", [
-        ("overflow_mask", "const bool invalid = s > 4095 ||", "const bool invalid = s > 8191 ||"),
-        ("fullpel_edge_left", "(edge_l && dx < 0) ||", "false ||"),
-        ("fullpel_edge_top", "(edge_t && dy < 0) ||", "false ||"),
+        ("overflow_mask", "const bool invalid = (s > 4095) |", "const bool invalid = (s > 8191) |"),
+        ("fullpel_edge_left", "(edge_l & (dx < 0)) |", "false |"),
+        ("fullpel_edge_top", "(edge_t & (dy < 0)) |", "false |"),
         ("edge_top_global", "const bool edge_t = first_mb_row + by == 0;",
          "const bool edge_t = by == 0;"),
         ("edge_bottom_global", "const bool edge_b = first_mb_row + by == total_mb_rows - 1;",
          "const bool edge_b = by == nby - 1;"),
         ("tie_break", "(255u - lin)", "lin"),
-        ("all_invalid_centre", "kmin >= BIG ? yr * n + yr :", "kmin >= BIG ? 0 :"),
-        ("funnel_align", "return sh ? __funnelshift_r(wv[q], wv[q + 1], sh) : wv[q];",
-         "return sh ? __funnelshift_l(wv[q], wv[q + 1], sh) : wv[q];"),
-        ("pack_halves", "(j < NCAND / 2 ? hi[j] << 16 : 0u)", "(j < NCAND / 2 ? hi[j] << 15 : 0u)"),
-        ("unpack_halves", "hs = (r8 & 1) * 16;", "hs = (~r8 & 1) * 16;"),
-        ("range_end_dx", "if (r8 + 8 < NCAND)", "if (r8 + 8 < NCAND - 1)"),
-        ("rounding_line", "else if (hy == 0) v = (1 + a + b) >> 1;",
-         "else if (hy == 0) v = (a + b) >> 1;"),
-        ("rounding_diagonal", "else v = (1 + a + b + cc + d) >> 2;",
-         "else v = (a + b + cc + d) >> 2;"),
+        ("all_invalid_centre", "kmin >= BIG ? YRC * 16 + YRC :", "kmin >= BIG ? 0 :"),
+        ("range_end_dx", "(dx < -yr) | (dx > yr);", "(dx < -yr) | (dx > yr + 1);"),
+        # the strip's window: the shifted copies, the row word after each
+        # 16-byte word, the halo rows, a macroblock's own columns
+        ("shifted_copy", "wv[j + 1], 8 * cp);", "wv[j + 1], 8 * (3 - cp));"),
+        ("copy_next_word", "lv[it].w, ln[it]};", "lv[it].w, 0u};"),
+        ("window_halo", "y0 - YRC - 1 + row + halo_rows", "y0 - YRC - 1 + row"),
+        ("neighbour_columns", "const int o = LCOL0 + 16 * i + dx;",
+         "const int o = LCOL0 + 16 * (i + 1) + dx;"),
+        ("past_end_store", "if (i >= n_here) return;", "if (i >= S) return;"),
+        ("group_share", "tot[m] += __shfl_sync(FULL, pick(to, m), src);",
+         "tot[m] += __shfl_sync(FULL, pick(g, m), src);"),
+        ("rounding_line", "cand[u][3] = __vavgu4(mc, nb[u + 1][0]);",
+         "cand[u][3] = __vhaddu4(mc, nb[u + 1][0]);"),
+        ("rounding_diagonal", "even = ab_e + cd_e + 0x00010001u,", "even = ab_e + cd_e,"),
+        ("diagonal_twice", "cand[0][0] = diag4(pe[1][0], po[1][0], pe[0][0], po[0][0]);",
+         "cand[0][0] = __vavgu4(__vavgu4(nb[1][1], nb[1][0]), __vavgu4(nb[0][1], nb[0][0]));"),
+        ("odd_bytes", "__byte_perm(c, 0u, 0x4341)", "__byte_perm(c, 0u, 0x4340)"),
+        ("shared_vertical", "cand[1][1] = __vavgu4(nb[1][1], nb[2][1]);",
+         "cand[1][1] = __vavgu4(nb[1][1], nb[3][1]);"),
+        ("intra_mean", "((pixsum >> 8) & 0xFF)", "((pixsum >> 8) & 0x7F)"),
         ("halfpel_edge_left", "bad = bad || edge_l || mvx_full == -yr;",
          "bad = bad || mvx_full == -yr;"),
         ("halfpel_edge_bottom", "bad = bad || edge_b || mvy_full == yr;",
@@ -62,27 +73,31 @@ MUTANTS = {
         # has the window's zero fill: every candidate that reads outside the
         # plane is masked by the frame edges.
         ("substitute", "(bad || s > 4095) ? 0x1000 : s", "(bad || s > 4095) ? 0xFFF : s"),
+        ("pack_halves", "hs[k] | (hs[k + 1] << 16)", "hs[k] | (hs[k + 1] << 15)"),
+        ("unpack_halves", "hsum[k + 1] = (int)(s >> 16);", "hsum[k + 1] = (int)(s >> 15);"),
         ("intra_wrap", "(pixsum + hsum[9]) & 0xFFFF", "(pixsum + hsum[9]) & 0x1FFFF"),
         ("intra_clip", "vals[9] = acc < 4096 ? acc : 0xFFF;", "vals[9] = acc < 4096 ? acc : 0x1000;"),
         ("tournament_89", "(w89 <= x0123 && w89 <= x4567)", "(w89 < x0123 && w89 <= x4567)"),
         ("tournament_pair", "if (vals[1] < w01)", "if (vals[1] <= w01)"),
-        ("mv_when_intra", "return {inter, mvx_full * 2 + hx_sel,",
-         "return {inter, inter ? mvx_full * 2 + hx_sel : 0,"),
-        ("iframe_pred", "pred_y[opix] = 128;", "pred_y[opix] = 127;"),
-        ("chroma_shift", "bx * 8 + (mvx >> 2) + c", "bx * 8 + (mvx / 4) + c"),
-        ("chroma_half_flag", "hx = (mvx >> 1) & 1;", "hx = (mvx / 2) & 1;"),
-        ("chroma_rounding", "if (hy && hx) v = (1 + a + b + cc + d) >> 2;",
-         "if (hy && hx) v = (a + b + cc + d) >> 2;"),
-        # chroma_pred_kernel's own code (one warp per macroblock); the
-        # chroma_* mutants above break the fused kernel's chroma_predict
+        ("mv_when_intra", "const int mv_x = mvx_full * 2 + hx_sel,",
+         "const int mv_x = is_inter ? mvx_full * 2 + hx_sel : 0,"),
+        ("iframe_pred", "grey = make_uint4(0x80808080u,", "grey = make_uint4(0x7F808080u,"),
+        # F's U/V stage from the strip's chroma window
+        ("chroma_shift", "8 + (mv_x >> 2) + 4 * half", "8 + (mv_x / 4) + 4 * half"),
+        ("chroma_half_flag", "hx = (mv_x >> 1) & 1", "hx = (mv_x / 2) & 1"),
+        ("chroma_row", "(is_v * 16 + fy) * L.cw", "(is_v * 16 + (fy ^ 1)) * L.cw"),
+        ("chroma_window_halo", "(row & 15) + (halo ? 4 : 0)", "(row & 15)"),
+        ("chroma_window_column", "cx = bx_s - 1 + col;", "cx = bx_s + col;"),
+        # routines of both F's U/V stage and chroma_pred_kernel (one warp per
+        # macroblock), then the latter's own code
+        ("avg4_rounding", "(d & m) + 0x00010001u;", "(d & m);"),
         ("chroma_warp_funnel_edge", "b = __funnelshift_rc(w0, w1, sh + 8);",
          "b = __funnelshift_r(w0, w1, sh + 8);"),
         ("chroma_warp_zero", "wc4 + w) : 0u;", "wc4 + w) : 0x80808080u;"),
-        ("chroma_warp_avg2", "else if (hx) v = __vavgu4(a, b);",
-         "else if (hx) v = __vhaddu4(a, b);"),
-        ("chroma_warp_avg4_rounding", "(d & m) + 0x00010001u;", "(d & m);"),
-        ("chroma_warp_avg4_twice", "if (hx && hy) v = avg4(a, b, c, d);",
-         "if (hx && hy) v = __vavgu4(__vavgu4(a, b), __vavgu4(c, d));"),
+        ("chroma_warp_avg2", "else if (hx) return __vavgu4(a, b);",
+         "else if (hx) return __vhaddu4(a, b);"),
+        ("chroma_warp_avg4_twice", "if (hx && hy) return avg4(a, b, c, d);",
+         "if (hx && hy) return __vavgu4(__vavgu4(a, b), __vavgu4(c, d));"),
         ("chroma_warp_shift", "(m_x >> 2) + 4 * half", "(m_x / 4) + 4 * half"),
         ("chroma_warp_halo", "(m_y >> 2) + r + halo_rows", "(m_y >> 2) + r"),
         ("chroma_warp_store", "(size_t)mb * 64 + r * 8 + 4 * half",

@@ -8,14 +8,18 @@ PyTorch; there tests/conftest.py (which imports jax) is left out:
 
 All equality is exact: this is an integer codec.  The shapes are small
 (64x64, 416x64 with nbx = 26, 1920x32 with nbx = 120, and 2048x32 with
-nbx = 128, the widest frame); chip_smoke.py covers 1920x1152.  The transform
+nbx = 128, the widest frame), but for the motion kernels, which also run
+at the cells' 720x576 and 1920x1152; chip_smoke.py covers 1920x1152.  The transform
 kernel's stages are also run alone on int32 tiles (transform_stage), to
 reach the wraps and clamps that pixels never reach.  The acsym and pack_slots
 kernels also get made-up operands that reach every run, escape, tile edge,
 look-back chain and cap.  Slots are int32 holding the uint32 pattern.
 """
 import contextlib
+import gc
 import json
+import re
+import weakref
 
 import numpy as np
 import pytest
@@ -679,14 +683,29 @@ def _equal(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("w,h", [(64, 64), (416, 64), (2048, 32)])
-@pytest.mark.parametrize("vl", [1, 3])
+def _strips_of(monkeypatch, sms):
+    """With ``sms``, the motion kernels' strips are those of a card of that
+    many SMs (ops/kernels/me.strip_width): 1 gives strips of 4 macroblocks
+    at every shape of these tests, so that frames 416, 720 and 96 wide end in
+    a strip cut short.  None keeps the card's own (2 at 720x576, 4 at
+    1920x1152, 1 at the small shapes)."""
+    if sms is not None:
+        monkeypatch.setattr(k_me, "_sm_count", lambda index: sms)
+
+
+@pytest.mark.parametrize("w,h,vl", [(64, 64, 1), (64, 64, 3), (416, 64, 1), (416, 64, 3),
+                                    (2048, 32, 1), (2048, 32, 3), (720, 576, 2),
+                                    (1920, 1152, 3)])
 @pytest.mark.parametrize("kind", ["pan", "flat", "noise", "white", "far-", "far+", "inward",
                                   "half-left", "stripes"])
-def test_me_kernels_equal_plain(dev, w, h, vl, kind):
+@pytest.mark.parametrize("sms", [None, 1])
+def test_me_kernels_equal_plain(dev, monkeypatch, w, h, vl, kind, sms):
     """The fused, luma and chroma kernels against their plain versions, I
     and P frames, tiles and planes; the fused kernel equals the luma kernel
-    followed by the chroma kernel."""
+    followed by the chroma kernel.  The cells' shapes (720x576 at vl 2,
+    1920x1152 at vl 3), and each shape with the card's strips and with
+    strips of 4 (``sms`` 1)."""
+    _strips_of(monkeypatch, sms)
     yr, ur = 2 * vl, vl
     cur, py, pu, pv = _me_planes(dev, w, h, kind, yr)
     halos = (motion.pad_halo(py, 8), motion.pad_halo(pu, 4), motion.pad_halo(pv, 4))
@@ -763,11 +782,16 @@ def test_me_kernels_range_end_1920_wide(dev, vl, sign):
 
 @pytest.mark.parametrize("form", ["fused", "split"])
 @pytest.mark.parametrize("backward", [False, True])
-def test_me_kernels_middle_band_equal_plain(dev, form, backward):
+@pytest.mark.parametrize("sms", [None, 1, 3])
+def test_me_kernels_middle_band_equal_plain(dev, monkeypatch, form, backward, sms):
     """The band form (halo rows, global MB rows): MB rows 2..5 of 8, whose
     seams must not be taken for frame edges.  The pan moves down and right,
     or, ``backward``, up and left, so the best candidates of the band's top
-    or bottom row lie across a seam."""
+    or bottom row lie across a seam.  Strips of one macroblock (the card's),
+    of 4 (``sms`` 1: a strip of 4 and one of 2 a row, each with one end on a
+    frame edge) and of 2 (``sms`` 3: three a row, the middle one at neither
+    edge)."""
+    _strips_of(monkeypatch, sms)
     w, h, r0, r1 = 96, 128, 2, 6
     f0, f1 = video(7, w, h, 2)[::-1 if backward else 1]
     y0, u0, v0 = colorspace.subsample_420(*(torch.as_tensor(p, device=dev) for p in f0))
@@ -786,6 +810,46 @@ def test_me_kernels_middle_band_equal_plain(dev, form, backward):
                 *band[2:], *got[:3], 3, halo=True, as_plane=as_plane))
         _equal(got, want)
         assert want.inter.any()
+
+
+@pytest.mark.parametrize("form", ["fused", "luma"])
+@pytest.mark.parametrize("as_plane", [False, True])
+def test_me_strip_stores_nothing_past_the_frame(dev, form, as_plane):
+    """A strip cut short by the frame's right edge (nbx = 5 in strips of 4)
+    computes and stores nothing for its macroblocks past the edge: every
+    output is a view into a buffer filled with a canary, every byte around
+    the views keeps it, and the views equal the plain version."""
+    w, h, yr = 80, 64, 6
+    nby, nbx = h // 16, w // 16
+    cur, py, pu, pv = _me_planes(dev, w, h, "pan", yr)
+    canary, pad = 0xA5, 4096
+
+    def view(shape, dtype):
+        n = int(np.prod(shape))
+        buf = torch.full((n * torch.tensor([], dtype=dtype).element_size() + 2 * pad,), canary,
+                         dtype=torch.uint8, device=dev)
+        return buf, buf[pad:-pad].view(dtype).view(shape)
+
+    outs = [view((nby, nbx), torch.bool), view((nby, nbx), torch.int32),
+            view((nby, nbx), torch.int32)]
+    for bs in (16, 8, 8)[:3 if form == "fused" else 1]:
+        outs.append(view((h * bs // 16, w * bs // 16) if as_plane else (nby, nbx, bs, bs),
+                         torch.uint8))
+    got = tuple(o for _, o in outs)
+    position = torch.ones((), dtype=torch.int32, device=dev)
+    if form == "fused":
+        _build.launch("mpeg2_me_fused", None, dev, cur, py, pu, pv, position, *got[:3],
+                      *got[3:], nby, nbx, yr, 0, nby, 0, int(as_plane), k_me.MAX_STRIP)
+    else:
+        _build.launch("mpeg2_me_luma", None, dev, cur, py, position, *got, nby, nbx, yr, 0,
+                      nby, 0, int(as_plane), k_me.MAX_STRIP)
+    torch.cuda.synchronize()
+    for buf, _ in outs:
+        assert (buf[:pad] == canary).all() and (buf[-pad:] == canary).all()
+    want = motion.estimate_and_predict_local(
+        cur, motion.pad_halo(py, 8), motion.pad_halo(pu, 4), motion.pad_halo(pv, 4), False, yr,
+        yr // 2, 0, nby, as_plane)
+    _equal(got, want[:len(got)])
 
 
 def test_wrappers_check_inputs(dev):
@@ -1265,6 +1329,41 @@ def test_graph_capture_raises_on_sync(dev, sync):
     assert int(x.sum()) == 28
 
 
+def test_graph_capture_frees_no_graph_while_capturing(dev):
+    """A program dropped in a reference cycle is freed by the collector
+    alone, and a graph freed while another step is captured resets there
+    and invalidates the capture.  Here the old program becomes cyclic
+    garbage inside the capture, with the collector set to run at every
+    allocation and to reach the oldest generation (everything older frozen
+    away): the capture still succeeds, as Step keeps the collector off
+    while it captures, and the old program goes at the next collection."""
+    x = torch.arange(8, device=dev)
+    box = []
+
+    def step():
+        if torch.cuda.is_current_stream_capturing():
+            box.clear()
+            [[] for _ in range(20000)]     # survivors enough for a full collection
+        return x + 1
+
+    threshold = gc.get_threshold()
+    gc.freeze()
+    try:
+        box.append(graphs.Step(lambda: x * 2, dev))
+        box[0].cycle = box[0]
+        gone = weakref.ref(box[0])
+        gc.collect()
+        gc.set_threshold(1, 1, 1)
+        new = graphs.Step(step, dev)
+    finally:
+        gc.set_threshold(*threshold)
+        gc.unfreeze()
+    assert not box
+    gc.collect()
+    assert gone() is None
+    assert torch.equal(new(), x + 1)
+
+
 def test_graph_me_kernels_take_the_flag_from_device_memory(dev):
     """The motion kernels read the I/P flag from device memory: a 0-d bool
     or int tensor on the card gives what the bool gives, and one launch each."""
@@ -1517,39 +1616,52 @@ def test_carry_wrapper_checks_inputs(dev):
                           per_frame)
 
 
-def _device_ops(fn, tmp_path, expect):
-    """The names of the device operations (kernels, copies, fills) that one
-    call of ``fn`` runs, from the profiler's trace, and its output.  The
-    profiler now and then returns a window without some of a short call's
-    events: a window with fewer than ``expect`` is taken again, up to three
-    times."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(3):
+def _graph_ops(dev, fn, tmp_path):
+    """The device operations (kernels, copies, fills) that one call of
+    ``fn`` enqueues, the launches it counts and a replay to run it: the
+    nodes of a CUDA graph of the call, one label each from
+    ``cudaGraphDebugDotPrint`` (a kernel's label holds its name, a copy's
+    MEMCPY, a fill's MEMSET), the call's tally and the graph's DOT text.
+    The capture holds every operation the call enqueues and raises on one
+    that waits for the device; the profiler's trace, late in a long
+    process, now and then holds none of a short call's device events."""
+    graph, tally = torch.cuda.CUDAGraph(keep_graph=True), {}      # the nodes outlive the capture
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with _build.tally_into(tally), torch.cuda.graph(graph, stream=stream):
+        out = fn()
+    torch.cuda.synchronize()
+    path = tmp_path / "call.dot"
+    graph.debug_dump(str(path))
+    dot = path.read_text()
+    labels = re.findall(r'"graph_\d+_node_\d+"\s*\[[^\]]*?label="(.*?)"\s*\]', dot, re.S)
+
+    def replay():
+        graph.replay()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        path = tmp_path / f"trace{attempt}.json"
-        prof.export_chrome_trace(str(path))
-        ops = sorted(e["name"] for e in json.loads(path.read_text())["traceEvents"]
-                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-        if len(ops) >= expect:
-            break
-    return out, ops
+        return out
+
+    return replay, labels, tally, dot
 
 
 @pytest.mark.parametrize("position", [0, 1, 7])
 def test_graph_me_kernel_reads_the_gop_position_as_it_stands(dev, tmp_path, position):
     """motion_estimate_fused with ``position`` (a 0-d int32 GOP position,
     0 an I-frame) gives what ``is_iframe`` gives, in one launch and no other
-    device operation; it refuses both operands, neither, or another dtype."""
+    device operation, and a graph of the call reads the position as it
+    stands at each replay; it refuses both operands, neither, or another
+    dtype."""
     cur, py, pu, pv = _me_planes(dev, 416, 64, "pan", 6)
     want = k_me.motion_estimate_fused(cur, py, pu, pv, position == 0, 6, 3)
+    other = k_me.motion_estimate_fused(cur, py, pu, pv, position != 0, 6, 3)
     t = torch.tensor(position, dtype=torch.int32, device=dev)
-    got, ops = _device_ops(lambda: _launched("me_fused", lambda: k_me.motion_estimate_fused(
-        cur, py, pu, pv, None, 6, 3, position=t)), tmp_path, 1)
-    _equal(got, want)
-    assert len(ops) == 1 and "me_fused_kernel" in ops[0], ops
+    replay, ops, tally, dot = _graph_ops(dev, lambda: k_me.motion_estimate_fused(
+        cur, py, pu, pv, None, 6, 3, position=t), tmp_path)
+    assert tally == {"me_fused": 1}, tally
+    assert len(ops) == 1 and "me_fused_kernel" in ops[0], (ops, dot)
+    _equal(replay(), want)
+    t.fill_(1 if position == 0 else 0)
+    _equal(replay(), other)
     for bad in (dict(is_iframe=True, position=t), dict(is_iframe=None)):
         with pytest.raises(ValueError, match="one of"):
             k_me.motion_estimate_fused(cur, py, pu, pv, yr=6, ur=3, **bad)

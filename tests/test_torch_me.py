@@ -273,3 +273,20 @@ def test_chroma_pred_edges_match_jax_kernel_interpreted(interpret_me, halo, as_p
     plain = motion.chroma_pred(hu, hv, *args[2:], ur)
     _assert_equal(tuple(map(motion.to_planes, plain)) if as_plane else plain, want)
     assert all(g.dtype == torch.uint8 for g in got)
+
+
+@pytest.mark.parametrize("nby,nbx,sms,want", [
+    (72, 120, 132, 4),    # 1920x1152, the hd cells: 2160 blocks of 4 on an H100
+    (36, 45, 132, 2),     # 720x576, the sd cells: 828 blocks of 2 (432 of 4 are too few)
+    (18, 120, 132, 4),    # a quarter band of 1920x1152, a shard's
+    (4, 4, 132, 1), (2, 128, 132, 1), (4, 26, 132, 1),    # the card tests' small frames
+    (4, 4, 1, 4), (4, 6, 3, 2), (1, 1, 1, 1), (0, 5, 132, 1)])
+def test_strip_width(nby, nbx, sms, want):
+    """The motion kernels' strip (macroblocks a block) from the macroblock
+    grid and the card's SM count: the widest of 4, 2 and 1 whose grid gives
+    every SM four blocks, and 1 when none does."""
+    got = k_me.strip_width(nby, nbx, sms)
+    assert got == want
+    assert got == 1 or nby * -(-nbx // got) >= 4 * sms
+    assert got == k_me.MAX_STRIP or nby * -(-nbx // (2 * got)) < 4 * sms
+
