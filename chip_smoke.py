@@ -1130,12 +1130,12 @@ def main():
         data += sequence_end(len(data))
         if bool(o[7]) or streams7[b] != data:
             raise AssertionError(f"11e: BatchEncoder stream {b} != its eager encode")
-    progs = sorted({(k[0], k[2], k[3]) for k in graphs._programs
-                    if k[0] in ("frame", "gop") and k[1].type == "cuda"
+    progs = sorted({(k[0], *k[2:5 if k[0] == "gop_batch" else 4]) for k in graphs._programs
+                    if k[0] in ("frame", "gop", "gop_batch") and k[1].type == "cuda"
                     and graphs._programs[k].step._graph is not None})
     print(f"11e BatchEncoder {ns} x {W}x{H} (phase 7, graph replays): each stream equals "
-          f"encode_gop_scan_core of its frames; captured programs (kind, H, W): {progs}",
-          flush=True)
+          f"encode_gop_scan_core of its frames; captured programs (kind, [streams,] H, W): "
+          f"{progs}", flush=True)
 
     # streaming: one frame at a time, its payload downloaded before the next
     # (push_frame's pattern), frames on the card; eager and graph in turns

@@ -157,9 +157,31 @@ def _enqueued(dsts, srcs) -> int:
     return sum(src is not dst for dst, src in zip(dsts, srcs))
 
 
-def _planes(dev, h: int, w: int, sub: int):
-    """Zeroed uint8 planes: (H, W), then two of (H/sub, W/sub)."""
-    return tuple(torch.zeros(shape, dtype=torch.uint8, device=dev)
+def _readable(frames, want: Tuple[int, ...], dev) -> Tuple[Tuple[torch.Tensor, ...], int]:
+    """The (Y, U, V) stacks ``frames``, each of shape ``want`` ((F, H, W), or
+    a batch's (B, F, H, W)) and uint8 on ``dev``, as the subsample kernel's
+    stack entry reads them: each where it lies where it can
+    (``k_colorspace.in_place``), else copied once, contiguous (counted as
+    ``stack_copies``; else their frames as ``frames_in_place``).  Returns
+    the stacks and the number of copies."""
+    stacks = []
+    for src, name in zip(frames, ("frames_y", "frames_u", "frames_v")):
+        if src.device != dev or src.dtype != torch.uint8 or tuple(src.shape) != want:
+            raise ValueError(f"{name}: {tuple(src.shape)} {src.dtype} on {src.device}, "
+                             f"the program takes {want} torch.uint8 on {dev}")
+        stacks.append(src if k_colorspace.in_place(src)
+                      else src.clone(memory_format=torch.contiguous_format))
+    copies = sum(s is not src for s, src in zip(stacks, frames))
+    if copies:
+        count("stack_copies", copies)
+    else:
+        count("frames_in_place", int(np.prod(want[:-2])))
+    return tuple(stacks), copies
+
+
+def _planes(dev, h: int, w: int, sub: int, lead: Tuple[int, ...] = ()):
+    """Zeroed uint8 planes: (*lead, H, W), then two of (*lead, H/sub, W/sub)."""
+    return tuple(torch.zeros((*lead, *shape), dtype=torch.uint8, device=dev)
                  for shape in ((h, w), (h // sub, w // sub), (h // sub, w // sub)))
 
 
@@ -189,6 +211,35 @@ class _FrameProgram:
             return self.step()
 
 
+def _frames_cap(f: int) -> int:
+    """The per-frame outputs' length for a chunk of f frames: a power of two,
+    at least 64, so that chunks of similar lengths share a program."""
+    return max(64, 1 << (f - 1).bit_length())
+
+
+class _GopCarry:
+    """The gop program's carry for n channels as (n, ...) stacks on one
+    device; channel b's tensors are row b of each (``_GopProgram``'s
+    ``carry`` and ``index``).  ``gop`` holds the GOP position, the frame
+    number and the P-frames a GOP, (3, n) int32; ``counts`` the sequence bit
+    count, the merge's new bit count and k, (3, n) int64; ``planes`` each
+    channel's plane table, (n, 6) int64.  Row strides keep every plane
+    16-byte aligned (widths are multiples of 16)."""
+
+    def __init__(self, dev, n: int, h: int, w: int, words: int, frames_cap: int):
+        self.frame_y = torch.zeros((n, h, w), dtype=torch.uint8, device=dev)
+        self.prev = _planes(dev, h, w, 2, (n,))
+        self.gop = torch.zeros((3, n), dtype=torch.int32, device=dev)
+        # guard margin per the append_bitstring sizing contract, as in
+        # encode_gop_scan_core: words = seq_cap + frame_cap + 1
+        self.seq_words = torch.zeros((n, words), dtype=torch.int64, device=dev)
+        self.counts = torch.zeros((3, n), dtype=torch.int64, device=dev)
+        self.overflow = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.frame_bits = torch.zeros((n, frames_cap), dtype=torch.int64, device=dev)
+        self.frame_ifs = torch.zeros((n, frames_cap), dtype=torch.int32, device=dev)
+        self.planes = torch.zeros((n, 6), dtype=torch.int64, device=dev)
+
+
 class _GopProgram:
     """encode_gop_scan's carry and its step on one device.  The step is
     encode_gop_scan_core's frame on the program's tensors: frame ``k`` of
@@ -208,23 +259,26 @@ class _GopProgram:
     slice rows where the glue and acsym kernels wrote them, and writes each
     row only up to its last partial word, all the merge reads.  On a card
     the step is the seven stage kernels and the carry kernel, and nothing
-    else.  The per-frame outputs hold ``frames_cap`` frames."""
+    else.  The per-frame outputs hold ``frames_cap`` frames.
+
+    The carry is row ``index`` of a ``_GopCarry``: one of its own by
+    default, or ``carry``, a batch's (``_GopBatch``), which captures the
+    channels' steps as the branches of one graph, so that such a channel
+    captures no step of its own (``step`` is None)."""
 
     def __init__(self, dev, h, w, *, yr, ur, q_level, row_cap, frame_cap, seq_cap,
-                 frames_cap):
-        self.frame_y = torch.zeros((h, w), dtype=torch.uint8, device=dev)
-        self.prev = _planes(dev, h, w, 2)
-        self.i_frame, self.frame_no, self.pframes = (entropy.gop_scalar(0, dev)
-                                                     for _ in range(3))
-        # guard margin per the append_bitstring sizing contract, as in
-        # encode_gop_scan_core
-        self.seq_words = torch.zeros(seq_cap + frame_cap + 1, dtype=torch.int64, device=dev)
-        self.seq_bits, self.new_bits = (torch.zeros((), dtype=torch.int64, device=dev)
-                                        for _ in range(2))
-        self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        self.k = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.frame_bits = torch.zeros(frames_cap, dtype=torch.int64, device=dev)
-        self.frame_ifs = torch.zeros(frames_cap, dtype=torch.int32, device=dev)
+                 frames_cap, carry=None, index=0):
+        own = carry is None
+        if own:
+            carry = _GopCarry(dev, 1, h, w, seq_cap + frame_cap + 1, frames_cap)
+        self.frame_y = carry.frame_y[index]
+        self.prev = tuple(p[index] for p in carry.prev)
+        self.i_frame, self.frame_no, self.pframes = carry.gop[:, index]
+        self.seq_words = carry.seq_words[index]
+        self.seq_bits, self.new_bits = carry.counts[0, index], carry.counts[1, index]
+        self.k = carry.counts[2, index:index + 1]
+        self.overflow = carry.overflow[index]
+        self.frame_bits, self.frame_ifs = carry.frame_bits[index], carry.frame_ifs[index]
         self.seq_cap, self.frames_cap = seq_cap, frames_cap
         self.yr, self.ur, self.q_level = yr, ur, q_level
         self.row_cap, self.frame_cap = row_cap, frame_cap
@@ -232,11 +286,13 @@ class _GopProgram:
         # graph reads them); until the first, the warm-up and the capture
         # read the zeroed prev_y as a one-frame stack of all three planes
         self.stacks = (self.prev[0][None],) * 3
-        self.planes = torch.zeros(6, dtype=torch.int64, device=dev)
+        self.planes = carry.planes[index]
         k_colorspace.plane_table(self.stacks, self.planes)
-        self.step = graphs.Step(self._step, dev, "gop")
+        self.step = graphs.Step(self._step, dev, "gop") if own else None
 
-    def _step(self) -> None:
+    def _step(self):
+        """One frame; returns the temporaries it made, which a batch's
+        capture holds until its branches join."""
         y, u, v = k_colorspace.subsample_420_stack(self.stacks, self.planes, self.k,
                                                    self.frame_y)
         mr = k_me.estimate_and_predict_planes(y, u, v, *self.prev, None, self.yr, self.ur,
@@ -252,30 +308,15 @@ class _GopProgram:
         k_carry.gop_carry(row_bits, self.row_cap, fbits, frame_ovf, self.new_bits,
                           (self.seq_bits, self.overflow, self.i_frame, self.pframes,
                            self.frame_no, self.k), (self.frame_bits, self.frame_ifs))
+        return (u, v, mr, quant_zig, hdr, slots, row_words, row_bits, fbits, frame_ovf)
 
     def _take_stacks(self, frames) -> int:
-        """Check the chunk's (F, H, W) stacks and point the step at them:
-        each read in place where the subsample kernel can
-        (``k_colorspace.in_place``), else copied once, contiguous, for this
-        chunk (counted as ``stack_copies``).  Returns the launches
-        enqueued: those copies and the table's writes."""
-        f, dev = len(frames[0]), self.frame_y.device
-        want = (f, *self.frame_y.shape)
-        stacks = []
-        for src, name in zip(frames, ("frames_y", "frames_u", "frames_v")):
-            if src.device != dev or src.dtype != torch.uint8 or tuple(src.shape) != want:
-                raise ValueError(f"{name}: {tuple(src.shape)} {src.dtype} on {src.device}, "
-                                 f"the program takes {want} torch.uint8 on {dev}")
-            stacks.append(src if k_colorspace.in_place(src)
-                          else src.clone(memory_format=torch.contiguous_format))
-        copies = sum(s is not src for s, src in zip(stacks, frames))
-        if copies:
-            count("stack_copies", copies)
-        else:
-            count("frames_in_place", f)
-        self.stacks = tuple(stacks)
+        """Point the step at the chunk's (F, H, W) stacks (``_readable``).
+        Returns the launches enqueued: the copies and the table's writes."""
+        self.stacks, copies = _readable(frames, (len(frames[0]), *self.frame_y.shape),
+                                        self.frame_y.device)
         k_colorspace.plane_table(self.stacks, self.planes)
-        return copies + 2 * len(stacks)
+        return copies + 2 * len(self.stacks)
 
     def start(self, frames, prev, i_frame0, frame_no0, pframes_count) -> None:
         """Set the carry for a new chunk: the frames' (F, H, W) stacks,
@@ -307,6 +348,98 @@ class _GopProgram:
             count("host_launches", 2)
         return (*self.prev, self.seq_words, self.seq_bits, self.i_frame, self.frame_no, ovf,
                 self.frame_bits[:n_frames], self.frame_ifs[:n_frames])
+
+
+class _GopBatch:
+    """encode_gop_scan's program for n channels side by side, the batch
+    program of parallel/dp.py: channel b is a ``_GopProgram`` whose carry is
+    row b of the batch's ``_GopCarry``, and the channels' steps are the
+    branches of one graph (``graphs.Step`` over their list), so that a
+    replay runs the next frame of every channel, the channels concurrently
+    on a card.  ``start`` sets every channel's carry with one operation a
+    stack: the plane tables and the GOP state are written into page-locked
+    host buffers and uploaded (2 launches; the host waits for the last
+    call's uploads before it writes the buffers again), the recons copied
+    (3), the sequence buffers, the counts and the overflow flags zeroed (3).
+    ``feed`` is the replay alone; ``result`` forms the (n,) overflow (2) and
+    returns the stacks themselves."""
+
+    def __init__(self, dev, n, h, w, *, frames_cap, **kw):
+        self.carry = _GopCarry(dev, n, h, w, kw["seq_cap"] + kw["frame_cap"] + 1, frames_cap)
+        self.channels = [_GopProgram(dev, h, w, **kw, frames_cap=frames_cap, carry=self.carry,
+                                     index=b) for b in range(n)]
+        self.seq_cap = kw["seq_cap"]
+        pinned = dev.type == "cuda"
+        self._table = torch.zeros((n, 6), dtype=torch.int64, pin_memory=pinned)
+        self._gop = torch.zeros((3, n), dtype=torch.int32, pin_memory=pinned)
+        self._uploaded = torch.cuda.Event() if pinned else None
+        self.stacks = ()
+        self.step = graphs.Step([c._step for c in self.channels], dev, "gop_batch")
+
+    def _take_stacks(self, frames) -> int:
+        """Point each channel at its slice of the call's (n, F, H, W) stacks
+        (``_readable``) and write the channels' plane tables into the host
+        buffer.  Returns the copies enqueued."""
+        c, n = self.carry, len(self.channels)
+        self.stacks, copies = _readable(frames, (n, frames[0].shape[1], *c.frame_y.shape[1:]),
+                                        c.frame_y.device)
+        for ch, own in zip(self.channels, zip(*(s.unbind(0) for s in self.stacks))):
+            ch.stacks = own
+        table = self._table.numpy()
+        for p, s in enumerate(self.stacks):
+            table[:, 2 * p] = s.data_ptr() + s.stride(0) * np.arange(n)
+            table[:, 2 * p + 1] = s.stride(1)
+        return copies
+
+    def start(self, frames, prev, i_frame0, frame_no0, pframes_count) -> None:
+        """Set every channel's carry for a new call: the frames' (n, F, H, W)
+        stacks, the (n, ...) reference planes, n host ints each of GOP
+        position and frame number, empty sequence buffers, no overflow."""
+        with span("gop.start"):
+            c, n = self.carry, len(self.channels)
+            if len(i_frame0) != n or len(frame_no0) != n:
+                raise ValueError(f"{len(i_frame0)} GOP positions and {len(frame_no0)} frame "
+                                 f"numbers, the program takes {n} channels")
+            if self._uploaded is not None:
+                self._uploaded.synchronize()
+            launches = self._take_stacks(frames)
+            gop = self._gop.numpy()
+            gop[0], gop[1] = [int(v) for v in i_frame0], [int(v) for v in frame_no0]
+            gop[2] = int(pframes_count)
+            c.planes.copy_(self._table, non_blocking=True)
+            c.gop.copy_(self._gop, non_blocking=True)
+            if self._uploaded is not None:
+                self._uploaded.record()
+            for dst, src, name in zip(c.prev, prev, ("prev_y", "prev_u", "prev_v")):
+                _copy_in(dst, src, name)
+            zeroed = (c.seq_words, c.counts, c.overflow)
+            for t in zeroed:
+                t.zero_()
+            count("host_launches", launches + 2 + _enqueued(c.prev, prev) + len(zeroed))
+
+    feed = _GopProgram.feed          # every channel's next frame: the replay alone
+
+    def result(self, n_frames: int):
+        c = self.carry
+        ovf = c.overflow | (c.counts[0] > 32 * self.seq_cap)
+        count("host_launches", 2)
+        return (*c.prev, c.seq_words, c.counts[0], c.gop[0], c.gop[1], ovf,
+                c.frame_bits[:, :n_frames], c.frame_ifs[:, :n_frames])
+
+
+def gop_batch(frames_y, *, yr: int, ur: int, q_level: int, row_cap: int, frame_cap: int,
+              seq_cap: int) -> _GopBatch:
+    """The batch program for (B, F, H, W) stacks like ``frames_y``: cached
+    per device, B, geometry, knobs, caps and the per-frame outputs' length,
+    its step captured at first use on a card.  parallel/dp.py's
+    encode_gops_batched runs it: ``start``, F ``feed``s, ``result``."""
+    n, f, h, w = frames_y.shape
+    frames_cap, dev = _frames_cap(f), frames_y.device
+    kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap,
+              seq_cap=seq_cap)
+    return graphs.cached(("gop_batch", dev, n, h, w, yr, ur, q_level, row_cap, frame_cap,
+                          seq_cap, frames_cap),
+                         lambda: _GopBatch(dev, n, h, w, **kw, frames_cap=frames_cap))
 
 
 def encode_frame_device(y444, u444, v444, prev_y, prev_u, prev_v, i_frame, frame_no, *,
@@ -359,7 +492,7 @@ def encode_gop_scan(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
     by the next call of a program of the same geometry, knobs and caps:
     clone what you keep.  On the CPU the step runs eagerly."""
     f, h, w = frames_y.shape
-    frames_cap = max(64, 1 << (f - 1).bit_length())
+    frames_cap = _frames_cap(f)
     kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap,
               seq_cap=seq_cap)
     dev = frames_y.device

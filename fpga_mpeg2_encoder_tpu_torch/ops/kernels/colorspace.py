@@ -39,12 +39,13 @@ def subsample_420(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
 
 
 def in_place(stack: torch.Tensor) -> bool:
-    """Whether subsample_420_stack can read the (F, H, W) uint8 ``stack``
-    where it lies: each frame's rows contiguous, its data and its frame
-    stride multiples of 16 bytes."""
-    _, _, w = stack.shape
-    return stack.stride()[1:] == (w, 1) and stack.data_ptr() % 16 == 0 \
-        and stack.stride(0) % 16 == 0
+    """Whether subsample_420_stack can read every frame of the (..., F, H, W)
+    uint8 ``stack`` where it lies (a batch's (B, F, H, W) stacks channel by
+    channel): each frame's rows contiguous, its data and each stride above
+    the frame's rows multiples of 16 bytes."""
+    w = stack.shape[-1]
+    return stack.stride()[-2:] == (w, 1) and stack.data_ptr() % 16 == 0 \
+        and all(st % 16 == 0 for st in stack.stride()[:-2])
 
 
 def plane_table(stacks, out: torch.Tensor) -> None:

@@ -4,20 +4,25 @@ all on one device or split over the ranks of a ``stream`` mesh.
 The counterpart of deploying N copies of the reference IP (BASELINE config
 5: "Batched 8-stream 1080p ... per-chip stream isolation").  Streams never
 communicate, so each stream's bytes are those of a single-stream encode
-whatever the batch or the mesh.  Every kernel takes one frame, so a batch is
-a loop over streams, each through the single-stream compiled programs of
-models/encoder (encode_frame_device, encode_gop_scan): on a card the streams
-replay one captured graph per geometry, knobs and caps, one after another,
-and each stream's outputs are copied out of the graph's tensors before the
-next stream's replay.  Every launch goes to one CUDA stream, so the JAX
-package's order (a scan over frames of a vmap over streams) would change
-nothing.  A stream axis in the kernels' grids is later work.
+whatever the batch or the mesh.  Every kernel takes one frame.
 
-``encode_gops_batched`` takes the single-stream program it loops over as
-``program`` (by default the port's ``encode_gop_scan``), so that a caller
-can run the batch over any function with that program's contract.  The
-batch functions' spans (``batch.*``) and counters are listed in
-``utils/profiling``.
+``encode_gops_batched`` runs the batch program (models/encoder.gop_batch):
+the B streams' carries side by side in (B, ...) stacks, each stream's step
+the single-stream program's step on its row, and the B steps the branches
+of one captured graph, so that on a card one replay encodes the next frame
+of every stream, the streams' kernels running concurrently, each branch on
+a CUDA stream of its own (runtime/graphs.py).  A call enqueues from the host
+about 10 operations (the stacks' plane tables and the GOP state uploaded,
+the recons copied, the buffers zeroed, the overflow formed) and one replay a
+frame-step, and returns the program's stacks themselves: the next call with
+the same key rewrites them.  On the CPU the branches run eagerly, one after
+another.  Given another single-stream program (``program``, a function with
+``encode_gop_scan``'s contract), it loops over the streams instead, each
+stream's outputs copied out of that program's tensors before the next
+stream's call; ``encode_frames_batched`` loops over ``encode_frame_device``
+the same way.  A stream axis in the kernels' grids is the later option where
+a trace shows kernels that still run alone.  The batch functions' spans
+(``batch.*``) and counters are listed in ``utils/profiling``.
 
 Unlike the JAX package there is no statistical level budget (``budget_bps``):
 a row overflows exactly when its bits exceed 32 * row_cap, and an
@@ -41,7 +46,7 @@ from ..models.encoder import (
     DEFAULT_ROW_CAP,
     chunk_caps,
     encode_frame_device,
-    encode_gop_scan,
+    gop_batch,
     next_i_frame,
     payload_bytes,
     resolve_device,
@@ -88,20 +93,32 @@ def encode_frames_batched(y444, u444, v444, prev_y, prev_u, prev_v,
 def encode_gops_batched(frames_y, frames_u, frames_v, prev_y, prev_u, prev_v,
                         i_frame0: Sequence[int], frame_no0: Sequence[int],
                         pframes_count: int, *, yr: int, ur: int, q_level: int,
-                        row_cap: int, frame_cap: int, seq_cap: int,
-                        program=encode_gop_scan):
-    """F frames of each of B streams, (B, F, H, W) stacks, each stream
-    through ``program`` (encode_gop_scan, or a function with its contract).
-    Returns its outputs stacked over the streams: recon_y, recon_u, recon_v
-    (B, ...), seq_words (B, seq_cap + frame_cap + 1) int64, seq_bits (B,),
-    i_frame, frame_no (B host ints each), overflow (B,) bool, frame_bits
-    (B, F), frame_i_frames (B, F) host ints."""
+                        row_cap: int, frame_cap: int, seq_cap: int, program=None):
+    """F frames of each of B streams, (B, F, H, W) stacks, through the batch
+    program, or each stream through ``program`` (a function with
+    encode_gop_scan's contract) where one is given.  Returns the outputs
+    stacked over the streams: recon_y, recon_u, recon_v (B, ...), seq_words
+    (B, seq_cap + frame_cap + 1) int64, seq_bits (B,), i_frame, frame_no (B
+    host ints each), overflow (B,) bool, frame_bits (B, F), frame_i_frames
+    (B, F) host ints.  The batch program's tensors are rewritten by its next
+    call: clone what you keep past it."""
+    kw = dict(yr=yr, ur=ur, q_level=q_level, row_cap=row_cap, frame_cap=frame_cap,
+              seq_cap=seq_cap)
     with span("batch.gop"):
-        ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = _each_stream(
-            frames_y.shape[0], lambda b: program(
+        if program is None:
+            prog = gop_batch(frames_y, **kw)
+            prog.start((frames_y, frames_u, frames_v), (prev_y, prev_u, prev_v), i_frame0,
+                       frame_no0, pframes_count)
+            for _ in range(frames_y.shape[1]):
+                prog.feed()
+            with span("batch.collect"):
+                out = prog.result(frames_y.shape[1])
+            count("batch_streams", frames_y.shape[0])
+        else:
+            out = _each_stream(frames_y.shape[0], lambda b: program(
                 frames_y[b], frames_u[b], frames_v[b], prev_y[b], prev_u[b], prev_v[b],
-                int(i_frame0[b]), int(frame_no0[b]), pframes_count, yr=yr, ur=ur,
-                q_level=q_level, row_cap=row_cap, frame_cap=frame_cap, seq_cap=seq_cap))
+                int(i_frame0[b]), int(frame_no0[b]), pframes_count, **kw))
+        ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = out
         with span("batch.sync"):
             i_f, fno, fifs = i_f.tolist(), fno.tolist(), fifs.tolist()
             count("host_syncs", 3)
@@ -213,7 +230,9 @@ class BatchEncoder:
             return None if bool(out[7].any()) else out
         ry, ru, rv, sw, sb, i_f, fno, _, _, _ = within_bounds(attempt, self._caps(n_frames),
                                                               "chunk")
-        self._prev = (ry, ru, rv)
+        # the batch program's recons are its own tensors, which the next
+        # call of its key (another BatchEncoder's too) rewrites
+        self._prev = (ry.clone(), ru.clone(), rv.clone())
         self._append_payloads(sw, sb)
         self._i_frame, self._frame_no = i_f, fno
 

@@ -20,7 +20,20 @@ capture is the span ``capture.<kind>`` (``utils/profiling``) and counts one
 that the program calling it counts with its own.  The kind names the
 program: its cache key's first element.
 
-On the CPU there is nothing to capture: each call runs the step eagerly.
+A step may also be a list of functions that share no tensor: the branches
+of one graph (parallel/dp.py's batch, one branch a channel).  Each branch
+runs on a stream of its own, forked from the side stream by one event and
+joined back to it before the capture ends, so a replay runs the branches
+concurrently on the card.  The warm-up forks and joins the same way, so each
+branch's pack_slots call allocates its look-back buffer on its own stream
+(ops/kernels/pack.py keys the buffers by device and stream): branches that
+shared one would race.  What each function returns stays referenced until
+the join and after it (the step's ``outputs``), and the allocator hands a
+block freed on one stream only to that stream, so no branch's temporaries
+reuse another's memory in the graph's pool.
+
+On the CPU there is nothing to capture: each call runs the step eagerly, a
+list's functions one after another.
 A capture that fails raises; nothing falls back to the eager step on a card.
 An operation that waits for the device inside the step (``bool()``,
 ``.item()``, an upload from pageable memory, a mask with a data-dependent
@@ -30,7 +43,7 @@ from __future__ import annotations
 
 import gc
 from collections import OrderedDict
-from typing import Callable, Dict, Hashable
+from typing import Callable, Dict, Hashable, List, Sequence, Union
 
 import torch
 
@@ -40,6 +53,7 @@ from ..utils.profiling import count, span
 MAX_PROGRAMS = 16        # programs kept per process; the least recently used goes
 
 _streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+_branches: Dict[torch.device, List["torch.cuda.Stream"]] = {}
 _programs: "OrderedDict[Hashable, object]" = OrderedDict()
 
 
@@ -54,26 +68,66 @@ def _side_stream(device: torch.device) -> "torch.cuda.Stream":
     return _streams[device]
 
 
+def _branch_streams(device: torch.device, n: int) -> List["torch.cuda.Stream"]:
+    """Streams for the n branches of a graph on ``device``, kept for the
+    process like the side stream (a graph's look-back buffers are keyed by
+    them).  torch hands out the streams of its pool in turn, so these differ
+    from each other and from the side stream up to the pool's size (32 a
+    device); past it branch b takes stream b modulo what there is, and
+    branches that share a stream run one after another, as captured."""
+    have = _branches.setdefault(device, [])
+    seen = {_side_stream(device).cuda_stream} | {s.cuda_stream for s in have}
+    for _ in range(64):
+        if len(have) >= n:
+            break
+        stream = torch.cuda.Stream(device)
+        if stream.cuda_stream not in seen:
+            have.append(stream)
+            seen.add(stream.cuda_stream)
+    return [have[b % len(have)] for b in range(n)]
+
+
 class Step:
     """``fn`` on ``device``: replayed from a CUDA graph captured after one
-    eager warm-up, or, on the CPU, called as it is.  ``launches`` is the
-    capture's tally of kernel launches, added to ``_build.LAUNCHES`` at each
-    replay; ``outputs`` is what ``fn`` returned when it was captured (the
-    graph's tensors, rewritten by each replay).  ``kind`` names the spans
+    eager warm-up, or, on the CPU, called as it is.  ``fn`` may be a list
+    of functions, the branches of one graph (see the module's docstring).
+    ``launches`` is the capture's tally of kernel launches, added to
+    ``_build.LAUNCHES`` at each replay; ``outputs`` is what ``fn`` returned
+    when it was captured (the graph's tensors, rewritten by each replay),
+    for a list the list of what each returned.  ``kind`` names the spans
     of the capture and the replays; ``launches_a_call`` is what a call
     enqueues from the host: 1 (the replay) on a card, 0 on the CPU."""
 
-    def __init__(self, fn: Callable[[], object], device, kind: str = "step"):
+    def __init__(self, fn: Union[Callable[[], object], Sequence[Callable[[], object]]],
+                 device, kind: str = "step"):
         self.device = torch.device(device)
         self._fn = fn
+        self._branches = None
         self._capture_span, self._replay_span = f"capture.{kind}", f"replay.{kind}"
         self._graph = None
         self.launches: Dict[str, int] = {}
         self.outputs = None
         self.launches_a_call = 0
         if self.device.type == "cuda":
+            if not callable(fn):
+                self._branches = _branch_streams(self.device, len(fn))
             self._capture()
             self.launches_a_call = 1
+
+    def _run(self, stream: "torch.cuda.Stream"):
+        """The step on ``stream``, the current stream: ``fn()``, or each
+        branch on its own stream, forked from ``stream`` by one event and
+        joined back to it, its outputs held past the join."""
+        if self._branches is None:
+            return self._fn()
+        fork, outputs = stream.record_event(), []
+        for fn, branch in zip(self._fn, self._branches):
+            branch.wait_event(fork)
+            with torch.cuda.stream(branch):
+                outputs.append(fn())
+        for branch in self._branches:
+            stream.wait_stream(branch)
+        return outputs
 
     def _capture(self) -> None:
         count("graph_captures")
@@ -83,7 +137,7 @@ class Step:
             stream.wait_stream(current)
             try:
                 with torch.cuda.stream(stream), _build.tally_into({}):
-                    self._fn()
+                    self._run(stream)
                 graph, tally = torch.cuda.CUDAGraph(), {}
                 # No collection during the capture: a graph that the
                 # collector frees (a program dropped in a reference cycle)
@@ -102,7 +156,7 @@ class Step:
                     with _build.tally_into(tally):
                         with torch.cuda.graph(graph, stream=stream,
                                               capture_error_mode="thread_local"):
-                            outputs = self._fn()
+                            outputs = self._run(stream)
                 finally:
                     if collecting:
                         gc.enable()
@@ -114,7 +168,7 @@ class Step:
 
     def __call__(self):
         if self._graph is None:
-            self.outputs = self._fn()
+            self.outputs = self._fn() if callable(self._fn) else [fn() for fn in self._fn]
         else:
             with span(self._replay_span):
                 self._graph.replay()

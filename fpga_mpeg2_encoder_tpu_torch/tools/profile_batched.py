@@ -5,9 +5,12 @@ on a CUDA card.
     python3 fpga_mpeg2_encoder_tpu_torch/tools/profile_batched.py [--streams 8] [--reps 4]
 
 The JAX package batches streams with vmap, and its tools/profile_batched.py
-looks for the stage that pays a tax for it.  The port's batch is a loop over
-streams (parallel/dp.py), so each stream-frame should cost what a frame
-costs alone: this tool records whether it does.  It runs
+looks for the stage that pays a tax for it.  The port's stages launch once a
+stream and frame, so each stream-frame should cost what a frame costs
+alone; its batch program (parallel/dp.py) runs the streams' steps as
+concurrent branches of one graph, so its frame loop may cost less a
+stream-frame than one stream's (the stages' device times are summed per
+kernel, overlapping or not).  This tool records both.  It runs
 profile_stages.py's stages (the same split, each under torch.profiler) on
 1 stream and on ``--streams`` streams, ``--reps`` frames of each stream
 (other content for every stream and rep), and prints each stage's device

@@ -34,30 +34,35 @@ The spans (``arg``: the sequence number of the call's first frame):
   and ``.carry`` defined the same way;
 * ``gop.start``, ``gop.feed`` (a frame's replay) and
   ``gop.result`` (``encode_gop_scan``'s program), ``frame.feed``
-  (``encode_frame_device``'s);
+  (``encode_frame_device``'s); the batch program's ``gop.start`` (every
+  stream's carry set) and ``gop.feed`` (one replay: a frame of every
+  stream);
 * ``replay.<kind>`` and ``capture.<kind>`` (``runtime/graphs.Step``; the
-  kind is the program cache key's first element: ``gop``, ``frame``,
-  ``shard_local``, ``shard_tail``);
+  kind is the program cache key's first element: ``gop``, ``gop_batch``,
+  ``frame``, ``shard_local``, ``shard_tail``);
 * ``batch.gop`` (``parallel/dp.encode_gops_batched``, the whole call), its
-  children ``batch.stream`` (a stream's single-stream program; ``arg``: the
-  stream's index), ``batch.collect`` (the copies of that stream's outputs
-  into the batch's stacks; ``arg`` the same) and ``batch.sync`` (the
-  blocking reads of the GOP state and the frames' types); ``batch.stream``
-  and ``batch.collect`` also in ``encode_frames_batched``.
+  children: with the batch program ``gop.start``, a ``gop.feed`` a
+  frame-step, ``batch.collect`` (the result's operations: the streams'
+  overflow flags) and ``batch.sync`` (the blocking reads of the GOP state
+  and the frames' types); with a ``program`` given, ``batch.stream`` (a
+  stream's call of it; ``arg``: the stream's index) and ``batch.collect``
+  (the copies of that stream's outputs into the batch's stacks; ``arg`` the
+  same) a stream, then ``batch.sync``; ``batch.stream`` and
+  ``batch.collect`` also in ``encode_frames_batched``.
 
 The counters: ``host_syncs`` (each blocking device read of ``push_chunk``,
 ``push_frame`` and ``encode_gops_batched``), ``host_launches`` (each
-host-side enqueue of the gop and frame programs: copies and fills into
-their tensors, the result's ops, the graph's replay; and each copy of a
-stream's outputs into the batch's stacks), ``batch_streams`` (each stream
-that a batch call encodes), ``overflow_retries`` (each
+host-side enqueue of the gop, batch and frame programs: copies, uploads and
+fills into their tensors, the result's ops, the graph's replay; and each
+copy of a stream's outputs into the batch's stacks), ``batch_streams``
+(each stream that a batch call encodes), ``overflow_retries`` (each
 re-encode at ``models/encoder.bound_caps``: an ``Encoder``'s frame or chunk,
 or a ``BatchEncoder``'s whole batch), ``graph_captures``,
 ``staged_frames`` (each frame ``push_chunk`` copies up through a page-locked
 slot), ``staging_waits`` (each time the host waits for a slot's copy to
 the device to end before writing the slot again), ``frames_in_place``
-(each frame the gop program's step reads from the caller's stacks where
-they lie) and ``stack_copies`` (each plane of a chunk's stacks that the gop
+(each frame the gop or batch program's step reads from the caller's stacks
+where they lie) and ``stack_copies`` (each plane of a chunk's stacks that the gop
 program copies first, since its step cannot read it in place).
 
 The benchmark's per-layer metrics read the tally (``bench_port/metrics``);

@@ -2,8 +2,10 @@
 encode_gops_batched, on the CPU: each stream's bytes equal the plain
 reference's (bench_port/reference/mpeg2.py, plain PyTorch) and the
 single-stream program's, chunk by chunk with the recon and GOP state
-carried, with the port's program or one passed in; under a profiler the
-batch records its spans and counts its streams, syncs and copies."""
+carried, with the port's batch program or a single-stream program passed
+in, which it loops over; the two paths give the same outputs; under a
+profiler each records its spans and counts its streams, syncs and
+launches."""
 import json
 import os
 import sys
@@ -23,7 +25,8 @@ from bench_port.reference.mpeg2 import Reference  # noqa: E402
 
 STREAMS = 3
 YR, UR, Q = 4, 2, 2
-BATCH_SPANS = ("batch.gop", "batch.stream", "batch.collect", "batch.sync")
+BATCH_SPANS = ("batch.gop", "gop.start", "gop.feed", "batch.stream", "batch.collect",
+               "batch.sync")
 
 
 def _videos(w, h, n):
@@ -92,39 +95,98 @@ def test_batch_equals_reference_and_single_streams(w, h, pframes, chunks, given)
     assert calls == ([f for f in firsts for _ in range(STREAMS)] if given else [])
 
 
-def test_batch_spans_and_counters(tmp_path):
+@pytest.mark.parametrize("path", ["batch", "loop"])
+def test_batch_spans_and_counters(tmp_path, path):
     """One chunk of 2 frames of 3 streams: the spans nest as documented and
-    the counters take their counts, the single-stream programs' launches
-    (none per frame, the frames read from the batch's stacks in place; per
-    chunk the stacks' 6 table writes, 3 plane copies, 3 scalar fills, 4
-    zeroings and the result's 2 ops on the CPU) plus 10 copies a stream."""
+    the counters take their counts.  The batch program: a ``gop.start``, a
+    ``gop.feed`` a frame-step, ``batch.collect`` around the result and
+    ``batch.sync``, no ``batch.stream``; its host launches a call (none a
+    frame on the CPU) the plane tables' and the GOP state's 2 uploads, 3
+    recon copies, 3 zeroings and the result's 2 ops.  The loop over a given
+    program: a ``batch.stream`` and a ``batch.collect`` a stream, the
+    single-stream programs' launches (per chunk the stacks' 6 table writes,
+    3 plane copies, 3 scalar fills, 4 zeroings and the result's 2 ops) plus
+    10 copies a stream.  Both read every frame in place, sync 3 times and
+    give the same outputs."""
     w = h = 64
     kw = _caps(w, h, 2)
+    given = dict(program=encode_gop_scan) if path == "loop" else {}
     stacks, state = _stacks(_videos(w, h, 2), 0, 2), _zero_state(w, h, STREAMS)
-    want = dp.encode_gops_batched(*stacks, *state, 2, **kw)
+    want = [v.clone() if torch.is_tensor(v) else v for v in dp.encode_gops_batched(
+        *stacks, *state, 2, **kw, program=encode_gop_scan)]
     profiling.reset()
-    path = str(tmp_path / "trace.json")
+    path_ = str(tmp_path / "trace.json")
     try:
-        with profiling.trace_to(path):
-            got = dp.encode_gops_batched(*stacks, *state, 2, **kw)
+        with profiling.trace_to(path_):
+            got = dp.encode_gops_batched(*stacks, *state, 2, **kw, **given)
         spans, counts = profiling.traced()
     finally:
         profiling.reset()
-    assert {s: spans[s][0] for s in BATCH_SPANS} == {
-        "batch.gop": 1, "batch.stream": STREAMS, "batch.collect": STREAMS, "batch.sync": 1}
-    assert spans["gop.feed"][0] == 2 * STREAMS
+    if path == "batch":
+        calls = {"batch.gop": 1, "gop.start": 1, "gop.feed": 2, "batch.stream": 0,
+                 "batch.collect": 1, "batch.sync": 1}
+        order = ["gop.start", "gop.feed", "gop.feed", "batch.collect", "batch.sync"]
+        launches = 2 + 3 + 3 + 2
+    else:
+        calls = {"batch.gop": 1, "gop.start": STREAMS, "gop.feed": 2 * STREAMS,
+                 "batch.stream": STREAMS, "batch.collect": STREAMS, "batch.sync": 1}
+        order = ["batch.stream", "batch.collect"] * STREAMS + ["batch.sync"]
+        launches = STREAMS * (2 * 0 + 18 + 10)
+    assert {s: spans.get(s, (0,))[0] for s in BATCH_SPANS} == calls
     assert counts["host_syncs"] == 3 and counts["batch_streams"] == STREAMS
-    assert counts["host_launches"] == STREAMS * (2 * 0 + 18 + 10)
+    assert counts["host_launches"] == launches
     assert counts["frames_in_place"] == 2 * STREAMS and "stack_copies" not in counts
     for a, b in zip(got, want):
         assert (a == b) if isinstance(a, list) else torch.equal(a, b)
 
-    with open(path) as f:
+    with open(path_) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") == "user_annotation" and e.get("name") in BATCH_SPANS]
     outer = next(e for e in events if e["name"] == "batch.gop")
-    inside = sorted((e for e in events if e is not outer), key=lambda e: e["ts"])
+    # the loop's gop.start and gop.feed lie inside its batch.stream spans
+    inside = sorted((e for e in events if e is not outer
+                     and (path == "batch" or not e["name"].startswith("gop."))),
+                    key=lambda e: e["ts"])
     assert all(outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
                for e in inside)
-    assert [e["name"] for e in inside] == ["batch.stream", "batch.collect"] * STREAMS + [
-        "batch.sync"]
+    assert [e["name"] for e in inside] == order
+
+
+@pytest.mark.parametrize("streams, strided", [(1, False), (3, False), (3, True)])
+def test_batch_program_equals_the_loop(streams, strided):
+    """The default path (the batch program, its channels' steps the
+    branches of one step, run one after another on the CPU) equals the loop
+    over encode_gop_scan given as ``program``, in all ten outputs, over
+    three calls: the first from mid-GOP positions and frame numbers that
+    differ between the streams, each later one from the recon and GOP state
+    the last returned, the GOP wrapping and chunks of 3, 2 and 4 frames.
+    Stacks of every other column are copied once a call, each plane
+    (``stack_copies``); others are read in place."""
+    w, h, pframes = 64, 64, 2
+    videos = [video(61 + b, w, h, 9, "noise" if b == 1 else "pan") for b in range(streams)]
+    z = torch.zeros((streams, h, w), dtype=torch.uint8)
+    zc = torch.zeros((streams, h // 2, w // 2), dtype=torch.uint8)
+    starts = ([1 + b % 2 for b in range(streams)], [1438 + 5 * b for b in range(streams)])
+    state = {path: (z, zc, zc.clone(), *starts) for path in ("batch", "loop")}
+    first = 0
+    for n in (3, 2, 4):
+        kw = _caps(w, h, 4)
+        stacks = tuple(torch.as_tensor(np.stack([np.stack([v[first + j][p] for j in range(n)])
+                                                 for v in videos])) for p in range(3))
+        if strided:
+            stacks = tuple(s.repeat_interleave(2, dim=-1)[..., ::2] for s in stacks)
+        loop = dp.encode_gops_batched(*stacks, *state["loop"], pframes, **kw,
+                                      program=encode_gop_scan)
+        before = dict(profiling.COUNTS)
+        batch = dp.encode_gops_batched(*stacks, *state["batch"], pframes, **kw)
+        counted = {k: profiling.COUNTS.get(k, 0) - before.get(k, 0)
+                   for k in ("frames_in_place", "stack_copies")}
+        assert counted == ({"frames_in_place": 0, "stack_copies": 3} if strided
+                           else {"frames_in_place": streams * n, "stack_copies": 0})
+        assert not bool(batch[7].any())
+        for a, b in zip(batch, loop):
+            assert (a == b) if isinstance(a, list) else torch.equal(a, b)
+        assert batch[6] == [f + first + n for f in starts[1]]
+        state = {"batch": (*batch[:3], batch[5], batch[6]),
+                 "loop": (*loop[:3], loop[5], loop[6])}
+        first += n

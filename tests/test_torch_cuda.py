@@ -2000,3 +2000,177 @@ def test_graph_subsample_stack_batch_streams_back_to_back(dev):
         assert (i_f[b], fno[b]) == (want[5], want[6]) and fifs[b] == want[9], b
         assert fbits[b].tolist() == want[8].tolist(), b
     graphs.clear()
+
+
+def _channels(dev, w, h, streams, n, seed):
+    """(B, n, H, W) stacks on the card of ``streams`` channels whose
+    content differs (noise in every third, a panning texture elsewhere)."""
+    videos = [video(seed + b, w, h, n, "noise" if b % 3 == 1 else "pan")
+              for b in range(streams)]
+    return [torch.as_tensor(np.stack([np.stack([f[p] for f in v]) for v in videos]),
+                            device=dev) for p in range(3)]
+
+
+def _batch_kw(w, h, n):
+    row_cap, frame_cap = M.bound_caps(w, h)
+    return dict(yr=4, ur=2, q_level=2, row_cap=row_cap, frame_cap=frame_cap,
+                seq_cap=frame_cap * n)
+
+
+def _each_channel_equals_core(got, stacks, prev, i0, f0, pframes, kw):
+    """Channel b of encode_gops_batched's outputs ``got`` equals the eager
+    encode_gop_scan_core of channel b alone from (prev[.][b], i0[b], f0[b]):
+    payload, recon, GOP state, frames' bits and types.  Returns the cores'
+    recons, (B, ...) each."""
+    ry, ru, rv, sw, sb, i_f, fno, ovf, fbits, fifs = got
+    assert not bool(ovf.any())
+    recons = []
+    for b in range(len(i0)):
+        want = M.encode_gop_scan_core(*(s[b] for s in stacks), *(p[b] for p in prev), i0[b],
+                                      f0[b], pframes, **kw)
+        nw = (int(want[4]) + 31) // 32
+        assert int(sb[b]) == int(want[4]) and torch.equal(sw[b, :nw], want[3][:nw]), b
+        for mine, theirs in zip((ry[b], ru[b], rv[b]), want[:3]):
+            assert torch.equal(mine, theirs), b
+        assert (i_f[b], fno[b]) == (want[5], want[6]) and fifs[b] == want[9], b
+        assert fbits[b].tolist() == want[8].tolist(), b
+        recons.append(want[:3])
+    return tuple(torch.stack([r[p] for r in recons]) for p in range(3))
+
+
+@pytest.mark.parametrize("w, h", [(416, 64), (720, 576)])
+@pytest.mark.parametrize("streams", [1, 3, 8])
+def test_graph_batch_program_equals_single_streams(dev, w, h, streams):
+    """The batch program (encode_gops_batched's default: one graph a
+    frame-step, one branch a channel) equals B eager encode_gop_scan_core
+    runs byte for byte, from GOP positions and frame numbers that differ
+    between the channels; it is captured once, each main-path kernel and the
+    carry kernel count once a channel and frame, and a call enqueues its 5
+    frame-steps' replays and the call's 10 operations."""
+    n, pframes = 5, 2
+    kw = _batch_kw(w, h, n)
+    stacks = _channels(dev, w, h, streams, n, 70 + streams)
+    zy = torch.zeros((streams, h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((streams, h // 2, w // 2), dtype=torch.uint8, device=dev)
+    i0, f0 = [b % 3 for b in range(streams)], [1437 + b for b in range(streams)]
+    graphs.clear()
+    before = dict(profiling.COUNTS)
+    _build.reset_launches()
+    got = encode_gops_batched(*stacks, zy, zc, zc, i0, f0, pframes, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {**{k: streams * n for k in MAIN_PATH}, "me_luma": 0,
+                               "chroma_pred": 0, "gop_carry": streams * n}, _build.LAUNCHES
+    counted = {k: profiling.COUNTS.get(k, 0) - before.get(k, 0)
+               for k in ("graph_captures", "host_launches", "batch_streams")}
+    assert counted == {"graph_captures": 1, "host_launches": n + 10,
+                       "batch_streams": streams}, counted
+    assert [k[0] for k in graphs._programs] == ["gop_batch"]
+    _each_channel_equals_core(got, stacks, (zy, zc, zc), i0, f0, pframes, kw)
+    graphs.clear()
+
+
+def test_graph_batch_program_carries_state_across_calls(dev):
+    """Three successive calls of the batch program (chunks of 3, 4 and 2
+    frames of 3 channels), the first from mid-GOP positions and frame
+    numbers, each later one from the recon and GOP state the last call
+    returned (the program's own tensors, passed back): each channel equals
+    its own chain of eager encode_gop_scan_core calls, and the later calls
+    copy no recon."""
+    w, h, streams, pframes = 416, 64, 3, 2
+    kw = _batch_kw(w, h, 4)
+    stacks = _channels(dev, w, h, streams, 9, 50)
+    zy = torch.zeros((streams, h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((streams, h // 2, w // 2), dtype=torch.uint8, device=dev)
+    graphs.clear()
+    batch = core = ((zy, zc, zc), [2, 1, 0], [1439, 7, 0])
+    first = 0
+    for n in (3, 4, 2):
+        chunk = [s[:, first:first + n] for s in stacks]
+        before = profiling.COUNTS.get("host_launches", 0)
+        got = encode_gops_batched(*chunk, *batch[0], batch[1], batch[2], pframes, **kw)
+        launches = profiling.COUNTS["host_launches"] - before
+        assert launches == n + (10 if first == 0 else 7), (first, launches)
+        recons = _each_channel_equals_core(got, chunk, *core, pframes, kw)
+        batch, core = (got[:3], got[5], got[6]), (recons, got[5], got[6])
+        first += n
+    assert batch[2] == [1448, 16, 9]
+    graphs.clear()
+
+
+@pytest.mark.parametrize("w, h", [(416, 64), (720, 576)])
+def test_graph_pack_batch_program_repeats_exactly(dev, w, h):
+    """The same call of 8 channels 20 times over gives the same outputs
+    each time, equal to the first's: the concurrent branches share no
+    look-back buffer and no temporary (a race would change bytes now and
+    then)."""
+    streams, n, pframes = 8, 6, 2
+    kw = _batch_kw(w, h, n)
+    stacks = _channels(dev, w, h, streams, n, 11)
+    zy = torch.zeros((streams, h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((streams, h // 2, w // 2), dtype=torch.uint8, device=dev)
+    args = (*stacks, zy, zc, zc, [0] * streams, list(range(streams)), pframes)
+    graphs.clear()
+    first = [v.clone() if torch.is_tensor(v) else v
+             for v in encode_gops_batched(*args, **kw)]
+    for rep in range(20):
+        got = encode_gops_batched(*args, **kw)
+        for a, b in zip(got, first):
+            assert (a == b) if isinstance(a, list) else torch.equal(a, b), rep
+    graphs.clear()
+
+
+def test_graph_pack_batch_program_lookback_a_branch(dev):
+    """The batch program's branches run on streams of their own, apart
+    from each other and from the side stream, and after the capture
+    ops/kernels/pack._lookback holds one look-back buffer for each of
+    them."""
+    streams, w, h = 8, 416, 64
+    kw = _batch_kw(w, h, 2)
+    stacks = _channels(dev, w, h, streams, 2, 21)
+    zy = torch.zeros((streams, h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((streams, h // 2, w // 2), dtype=torch.uint8, device=dev)
+    graphs.clear()
+    out = encode_gops_batched(*stacks, zy, zc, zc, [0] * streams, [0] * streams, 2, **kw)
+    (prog,) = graphs._programs.values()
+    handles = [s.cuda_stream for s in prog.step._branches]
+    assert len(set(handles)) == streams
+    assert graphs._side_stream(out[3].device).cuda_stream not in handles
+    buffers = [k_pack._lookback.get((out[3].device, s)) for s in handles]
+    assert all(b is not None for b in buffers)
+    assert len({b.data_ptr() for b in buffers}) == streams
+    graphs.clear()
+
+
+def test_graph_batch_program_given_a_program_loops(dev, tmp_path):
+    """With a program given, encode_gops_batched keeps its loop over the
+    channels: a batch.stream and a batch.collect span a channel, 10 copies
+    of each channel's outputs, and the same outputs as the batch program,
+    which records no batch.stream."""
+    streams, n, w, h = 3, 3, 416, 64
+    kw = _batch_kw(w, h, n)
+    stacks = _channels(dev, w, h, streams, n, 31)
+    zy = torch.zeros((streams, h, w), dtype=torch.uint8, device=dev)
+    zc = torch.zeros((streams, h // 2, w // 2), dtype=torch.uint8, device=dev)
+    args = (*stacks, zy, zc, zc, [1] * streams, [0] * streams, 2)
+    graphs.clear()
+    runs = {}
+    for path, given in (("batch", {}), ("loop", dict(program=M.encode_gop_scan))):
+        encode_gops_batched(*args, **kw, **given)           # the capture
+        profiling.reset()
+        try:
+            with profiling.trace_to(str(tmp_path / f"{path}.json")):
+                out = encode_gops_batched(*args, **kw, **given)
+            spans, counts = profiling.traced()
+        finally:
+            profiling.reset()
+        runs[path] = ([v.clone() if torch.is_tensor(v) else v for v in out], spans, counts)
+    (batch, bspans, bcounts), (loop, lspans, lcounts) = runs["batch"], runs["loop"]
+    assert lspans["batch.stream"][0] == lspans["batch.collect"][0] == streams
+    assert lspans["replay.gop"][0] == streams * n and "replay.gop_batch" not in lspans
+    assert lcounts["host_launches"] == streams * (n + 18 + 10)
+    assert "batch.stream" not in bspans and bspans["batch.collect"][0] == 1
+    assert bspans["gop.feed"][0] == bspans["replay.gop_batch"][0] == n
+    assert bcounts["host_launches"] == n + 10
+    for a, b in zip(batch, loop):
+        assert (a == b) if isinstance(a, list) else torch.equal(a, b)
+    graphs.clear()

@@ -240,16 +240,20 @@ def test_subsample_stack_in_place_rule():
     """The stack entry reads a stack in place when each frame's rows are
     contiguous and its data and frame stride are multiples of 16 bytes:
     slices at any frame, a plane of an (F, 3, H, W) stack, a frame repeated
-    (stride 0); not a column-strided view, a transposed one, data 8 bytes
-    off, a frame stride of H·W + 8."""
+    (stride 0), a batch's (B, F, H, W) stack and a channel slice of one;
+    not a column-strided view, a transposed one, data 8 bytes off, a frame
+    stride of H·W + 8, a channel stride of F·H·W + 8."""
     f, h, w = 3, 32, 48
     buf = torch.zeros(f * h * w + 64, dtype=torch.uint8)
     assert buf.data_ptr() % 16 == 0
     whole = buf[:f * h * w].view(f, h, w)
+    batch = torch.zeros((2, f + 1, h, w), dtype=torch.uint8)
     for s in (whole, whole[1:], torch.zeros((f, 3, h, w), dtype=torch.uint8)[:, 2],
-              whole[0].expand(f, h, w)):
+              whole[0].expand(f, h, w), batch, batch[:, 1:]):
         assert k_colorspace.in_place(s)
     for s in (torch.zeros((f, h, 2 * w), dtype=torch.uint8)[..., ::2],
               torch.zeros((f, w, h), dtype=torch.uint8).transpose(1, 2),
-              buf[8:8 + f * h * w].view(f, h, w), buf.as_strided((f, h, w), (h * w + 8, w, 1))):
+              buf[8:8 + f * h * w].view(f, h, w), buf.as_strided((f, h, w), (h * w + 8, w, 1)),
+              torch.zeros(2 * f * h * w + 8, dtype=torch.uint8).as_strided(
+                  (2, f, h, w), (f * h * w + 8, h * w, w, 1))):
         assert not k_colorspace.in_place(s)

@@ -11,8 +11,8 @@ and whose GOP wraps.  The gop program's carry (ops/kernels/carry.py, its
 plain version here) against the operations the step ran before it and
 against the GOP rules, and encode_gop_scan against the eager
 encode_gop_scan_core, over stacks in each layout its callers hand over.
-Also the launch ledger's arithmetic under replay and
-the program cache.  All equality is exact.
+Also the launch ledger's arithmetic under replay,
+a step of several branches on the CPU and the program cache.  All equality is exact.
 """
 import numpy as np
 import pytest
@@ -220,6 +220,20 @@ def test_program_cache_and_inputs():
         M.encode_frame_device(f[0][0].to(torch.int32), f[1][0], f[2][0], f[0][0], zc, zc,
                               0, 0, **{k: v for k, v in kw.items() if k != "seq_cap"})
     graphs.clear()
+
+
+def test_step_branches_run_in_turn_on_the_cpu():
+    """A step of several functions (on a card the branches of one graph,
+    each on a stream of its own) runs them one after another at each call
+    on the CPU, and its outputs are the list of what each returned; a step
+    of one function returns what it returns."""
+    order = []
+    step = graphs.Step([lambda b=b: order.append(b) or 10 * b for b in range(3)], "cpu",
+                       "t")
+    assert step.launches_a_call == 0 and step.outputs is None
+    assert step() == [0, 10, 20] and step() == [0, 10, 20] and order == [0, 1, 2] * 2
+    assert step.outputs == [0, 10, 20]
+    assert graphs.Step(lambda: 7, "cpu")() == 7
 
 
 def test_gop_scalar_fills_on_the_device():
